@@ -24,3 +24,5 @@ assert jax.local_device_count() == 8, "expected 8 virtual CPU devices"
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end drills (minutes)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped without one")

@@ -1,0 +1,122 @@
+"""The port's CUDA kernels and Engine on the card, held against the plain
+PyTorch versions on the same card. This file imports neither JAX nor
+tf2_tpu, so it runs on a GPU machine without them:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Without a card every test here skips (decided inside the ``cuda`` fixture,
+not at import). Tolerance is 0 throughout: integer accumulation is exact
+and the epilogue rounds the same f32 operations.
+"""
+import numpy as np
+import pytest
+import torch
+
+from tf2_tpu_torch import kernels
+from tf2_tpu_torch.kernels import qconv, shift_matmul
+from tf2_tpu_torch.transform import potq
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _tensors(dev, *arrays):
+    return [torch.as_tensor(a).to(dev) for a in arrays]
+
+
+def _gemm(rng, m, k, n):
+    x = rng.integers(-127, 128, (m, k), dtype=np.int8)
+    codes = rng.integers(0, 16, (k, n)).astype(np.uint8)
+    w = rng.integers(-127, 128, (k, n), dtype=np.int8)
+    es = rng.uniform(1e-5, 1e-4, n).astype(np.float32)
+    eb = rng.standard_normal(n).astype(np.float32)
+    return x, potq.pack_codes(codes), w, es, eb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(100, 576, 64), (8, 2048, 1000), (49, 2048, 512),
+                                   (130, 48, 200), (1, 64, 16)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_qmatmul_kernels_match_plain(cuda, m, k, n, relu):
+    x, packed, w, es, eb = _tensors(cuda, *_gemm(np.random.default_rng(m + k), m, k, n))
+    before = kernels.launch_counts()
+    got = shift_matmul.qmatmul_pot4(x, packed, es, eb, relu)
+    assert torch.equal(got, shift_matmul.qmatmul_pot4_plain(x, packed, es, eb, relu))
+    got = shift_matmul.qmatmul_int8(x, w, es, eb, relu)
+    assert torch.equal(got, shift_matmul.qmatmul_int8_plain(x, w, es, eb, relu))
+    after = kernels.launch_counts()
+    assert after["qmatmul_pot4"] - before["qmatmul_pot4"] == 1
+    assert after["qmatmul_int8"] - before["qmatmul_int8"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout,kh,stride,padding,wfmt", [
+    (2, 15, 15, 32, 64, 3, 1, "SAME", "pot4"),
+    (2, 14, 14, 32, 64, 3, 2, "SAME", "pot4"),
+    (2, 14, 14, 64, 96, 1, 2, "SAME", "pot4"),
+    (1, 28, 28, 3, 64, 7, 2, "SAME", "int8"),
+    (2, 9, 9, 130, 40, 3, 1, "SAME", "pot4"),
+    (2, 13, 13, 24, 32, 3, 2, "VALID", "int8"),
+    (2, 16, 16, 12, 64, 4, 1, "VALID", "int8"),
+])
+@pytest.mark.parametrize("relu", [False, True])
+def test_qconv_kernels_match_plain(cuda, b, h, w, cin, cout, kh, stride, padding,
+                                   wfmt, relu):
+    rng = np.random.default_rng(cin + cout)
+    x = rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)
+    if wfmt == "pot4":
+        wparam = potq.pack_codes(rng.integers(0, 16, (kh * kh * cin, cout)).astype(np.uint8))
+    else:
+        wparam = rng.integers(-127, 128, (kh, kh, cin, cout), dtype=np.int8)
+    es = rng.uniform(1e-5, 1e-4, cout).astype(np.float32)
+    eb = rng.standard_normal(cout).astype(np.float32)
+    x, wparam, es, eb = _tensors(cuda, x, wparam, es, eb)
+    kw = dict(strides=(stride, stride), padding=padding, groups=1, relu=relu,
+              wfmt=wfmt, kshape=(kh, kh, cin, cout))
+    name = f"qconv_s{stride}"
+    before = kernels.launch_counts()[name]
+    got = qconv.fused_qconv2d(x, wparam, es, eb, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    assert torch.equal(got, qconv.fused_qconv2d(x, wparam, es, eb, plain=True, **kw))
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_bad_operands(cuda):
+    x, packed, w, es, eb = _tensors(cuda, *_gemm(np.random.default_rng(0), 32, 64, 32))
+    with pytest.raises(ValueError, match="contiguous"):
+        shift_matmul.qmatmul_int8(x.t().contiguous().t(), w, es, eb)
+    with pytest.raises(ValueError, match="dtype"):
+        shift_matmul.qmatmul_int8(x, w.to(torch.int32), es, eb)
+    with pytest.raises(ValueError, match="on cpu"):
+        shift_matmul.qmatmul_pot4(x, packed, es.cpu(), eb)
+
+
+@pytest.mark.cuda
+def test_engine_every_node_equals_plain(cuda):
+    """Small ResNet through Engine on the card: launch counts per forward,
+    every node equal to the plain path on the card, logits equal to the
+    Engine on the CPU."""
+    from tf2_tpu_torch.graph import execute
+    from tf2_tpu_torch.models import synthetic_quantized
+    from tf2_tpu_torch.runtime import Engine
+
+    art = synthetic_quantized("resnet50", seed=0, batch=2, image=64,
+                              depths=(1, 1, 1, 1), classes=64)
+    x = np.random.default_rng(0).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    eng = Engine(art.graph, art.params)
+    kernels.reset_launch_counts()
+    logits = eng.run(image=x)
+    assert kernels.launch_counts() == {"qmatmul_pot4": 9, "qmatmul_int8": 1,
+                                       "qconv_s1": 1, "qconv_s2": 7}
+    xt = torch.as_tensor(x).to(cuda)
+    _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
+    _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
+    for n in eng.graph.nodes:
+        assert torch.equal(env[n.name], plain[n.name]), n.name
+    cpu = Engine(art.graph, art.params, device="cpu").run(image=x)
+    assert torch.equal(logits.cpu(), cpu)

@@ -1,0 +1,33 @@
+"""Executors for the quantized ops, registered into the graph executor and
+implemented by ``kernels.dispatch``."""
+from __future__ import annotations
+
+import torch
+
+from ..kernels import dispatch
+from .execute import register_op
+
+
+@register_op("quantize")
+def _quantize(node, params, x):
+    return dispatch.quantize(x, node.attrs["scale"])
+
+
+@register_op("dequantize")
+def _dequantize(node, params, x):
+    return x.to(torch.float32) * node.attrs["scale"]
+
+
+@register_op("qconv2d", kernel=True)
+def _qconv2d(node, params, x, plain=False):
+    return dispatch.qconv2d(node, params, x, plain=plain)
+
+
+@register_op("qdense", kernel=True)
+def _qdense(node, params, x, plain=False):
+    return dispatch.qdense(node, params, x, plain=plain)
+
+
+@register_op("qadd")
+def _qadd(node, params, a, b):
+    return dispatch.qadd(node, params, a, b)
