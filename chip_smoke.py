@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero before the last line:
  3. artifact full-width ResNet-50 (224x224, 1000 classes, depths 3-4-6-3)
              through the port's transform (init_params(seed=0), BN fold,
              W4-PoT quantize, synthetic activation scales), saved and
-             loaded back as an artifact; Engines at batch 64 and 1.
- 4. kernels  each of the four kernels against its plain version on the
-             card with 0 mismatches: every conv/dense node of the main path
+             loaded back as an artifact; Engines at batch 64 and 1 and on
+             the CPU at batch 1, each unfused and with block_fusion=True.
+ 4. kernels  each of the four conv/GEMM kernels against its plain version
+             on the card with 0 mismatches: every conv/dense node of the path
              at batch 64 and 1 on its real input, the same shapes with relu
              flipped on random inputs and with +-127 inputs on
              max-magnitude weights, and ragged shapes. Times each kernel,
@@ -19,11 +20,22 @@ Phases, in order; any failure exits non-zero before the last line:
              the GEMMs, bf16 F.conv2d for the convs) with CUDA events at
              the batch-64 shapes.
  5. main     Engine.run at batch 64 and 1 with launch counts per forward
-             (33 / 1 / 13 / 7), finite (B, 1000) logits, every node equal
-             to the plain path on the card and, at batch 1, to the Engine
-             on the CPU; Engine.benchmark img/s and latency.
-Prints the kernels JSON line, the card line and, last, the contract line;
-the per-shape timings go to stderr as one JSON line.
+             (33 / 1 / 13 / 7 / 0), finite (B, 1000) logits, every node
+             equal to the plain path on the card and, at batch 1, to the
+             Engine on the CPU; Engine.benchmark img/s and latency.
+ 6. chains   Engine(block_fusion=True) at batch 64 and 1 from the same
+             artifact: every qblockchain node against the plain chain with
+             0 mismatches on its real input, with the adds' relu flipped,
+             with +-127 inputs on +-127 weights, and ragged chains; each
+             chain timed at batch 64 (kernel, plain, bound) and its kernel
+             at batch 1.
+ 7. fused    Engine(block_fusion=True).run at batch 64 and 1: launch counts
+             per forward (6 / 1 / 0 / 7 / 4), every node equal to the plain
+             path and, at batch 1, to the fused Engine on the CPU; logits
+             equal to phase 5's bit for bit; Engine.benchmark beside it.
+Prints the kernels JSON line (launches: qblockchain's from phase 7, the
+others' from phase 5), the card line and, last, the contract line; the
+per-shape timings go to stderr as one JSON line.
 """
 from __future__ import annotations
 
@@ -45,8 +57,12 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                      "tf2_tpu/kernels/shift_matmul.py:59"),
     "qconv_s1": ("tf2_tpu_torch/kernels/csrc/qconv.cu", "tf2_tpu/kernels/qconv.py:98"),
     "qconv_s2": ("tf2_tpu_torch/kernels/csrc/qconv.cu", "tf2_tpu/kernels/qconv.py:166"),
+    "qblockchain": ("tf2_tpu_torch/kernels/csrc/qblocks.cu", "tf2_tpu/kernels/qblocks.py:104"),
 }
-EXPECTED_LAUNCHES = {"qmatmul_pot4": 33, "qmatmul_int8": 1, "qconv_s1": 13, "qconv_s2": 7}
+EXPECTED_LAUNCHES = {"qmatmul_pot4": 33, "qmatmul_int8": 1, "qconv_s1": 13, "qconv_s2": 7,
+                     "qblockchain": 0}
+FUSED_LAUNCHES = {"qmatmul_pot4": 6, "qmatmul_int8": 1, "qconv_s1": 0, "qconv_s2": 7,
+                  "qblockchain": 4}
 
 
 def log(msg: str) -> None:
@@ -102,10 +118,15 @@ def phase_artifact():
     for k, v in art.params.items():
         if not np.array_equal(params[k], v):
             raise RuntimeError(f"artifact round trip changed {k}")
-    engines = {b: Engine(graph.with_batch_size(b), params) for b in (64, 1)}
+    engines, cpu_engines = {}, {}
+    for fused in (False, True):
+        engines[fused] = {b: Engine(graph.with_batch_size(b), params, block_fusion=fused)
+                          for b in (64, 1)}
+        cpu_engines[fused] = Engine(graph.with_batch_size(1), params, device="cpu",
+                                    block_fusion=fused)
     log(f"artifact: {len(params)} tensors, {art.size_bytes() / 1e6:.1f} MB, "
         f"transform + save + load + engines {time.time() - t:.1f} s")
-    return engines, Engine(graph.with_batch_size(1), params, device="cpu")
+    return engines, cpu_engines
 
 
 def _conv_node(node):
@@ -121,6 +142,8 @@ def _call(node, params, x_q, plain=False):
 
     if node.op == "qconv2d":
         return dispatch.qconv2d(_conv_node(node), params, x_q, plain=plain)
+    if node.op == "qblockchain":
+        return dispatch.qblockchain(node, params, x_q, plain=plain)
     return dispatch.qdense(node, params, x_q, plain=plain)
 
 
@@ -144,7 +167,7 @@ def _taps(size: int, k: int, s: int, p0: int, out: int) -> tuple[int, int]:
     return len(np.unique(idx[inside])), int(inside.sum())
 
 
-def _work(node, x_q, y) -> tuple[float, float]:
+def _work(node, params, x_q, y) -> tuple[float, float]:
     """(bytes, operations) the function needs: each input element the
     function reads, read once (a strided 1x1 conv reads one pixel in four),
     the weights, es and eb read once, the output written once; 2 operations
@@ -152,6 +175,8 @@ def _work(node, x_q, y) -> tuple[float, float]:
     those on the zero padding)."""
     from tf2_tpu_torch.kernels import qconv
 
+    if node.op == "qblockchain":
+        return _chain_work(node, params, x_q, y)
     if node.op == "qconv2d":
         kh, kw, cin, cout = node.attrs["kshape"]
         k = kh * kw * cin
@@ -169,14 +194,36 @@ def _work(node, x_q, y) -> tuple[float, float]:
     return x_bytes + w_bytes + 8 * cout + y.numel(), 2.0 * macs
 
 
+def _chain_work(node, params, x_q, y) -> tuple[float, float]:
+    """(bytes, operations) of a chain: its input read once, its output
+    written once, every weight, es and eb read once (the values between
+    blocks are the function's own); 2 operations per multiply-accumulate of
+    each 1x1, of the downsamples and of the 3x3 taps inside the image."""
+    b, h, w, cin = x_q.shape
+    _, taps_y = _taps(h, 3, 1, 1, h)
+    _, taps_x = _taps(w, 3, 1, 1, w)
+    macs = 0
+    for battrs in node.attrs["blocks"]:
+        cm, cout = battrs["cm"], battrs["cout"]
+        macs += b * h * w * (cin * cm + cm * cout) + b * taps_y * taps_x * cm * cm
+        if battrs["down"]:
+            macs += b * h * w * cin * cout
+        cin = cout
+    param_bytes = sum(params[p].numel() * params[p].element_size() for p in node.params)
+    return x_q.numel() + y.numel() + param_bytes, 2.0 * macs
+
+
 def _library(node, params, x_q):
     """One PyTorch call computing the same product (no epilogue), used
-    only as a time: torch._int_mm for GEMMs, bf16 F.conv2d for convs."""
+    only as a time: torch._int_mm for GEMMs, bf16 F.conv2d for convs. No
+    single PyTorch call computes a chain of bottleneck blocks: None."""
     import torch.nn.functional as F
 
     from tf2_tpu_torch.kernels import qconv
     from tf2_tpu_torch.transform import potq
 
+    if node.op == "qblockchain":
+        return None
     w = params[node.params[0]]
     if node.op == "qconv2d":
         kshape = tuple(node.attrs["kshape"])
@@ -267,10 +314,74 @@ def _ragged_cases(rng, dev):
 
 
 def _flip_relu(node):
+    """The node with its relu flipped; a chain's in every block's add."""
     from tf2_tpu_torch.graph import Node
 
-    return Node(node.name, node.op, node.inputs, node.params,
-                dict(node.attrs, relu=not node.attrs["relu"]))
+    if node.op == "qblockchain":
+        attrs = dict(node.attrs, blocks=[dict(blk, relu=not blk["relu"])
+                                         for blk in node.attrs["blocks"]])
+    else:
+        attrs = dict(node.attrs, relu=not node.attrs["relu"])
+    return Node(node.name, node.op, node.inputs, node.params, attrs)
+
+
+def _chain_adversarial(node, params, rng, x_q, extreme: bool):
+    """+-127 inputs on +-127 weights in every conv of a chain. ``extreme``:
+    every input and weight +127, the largest accumulators, with es placing
+    each conv's largest sum just inside the int8 range; otherwise random
+    signs with es large enough that outputs clip at both ends. Returns
+    (params, x)."""
+    dev = x_q.device
+    p = dict(params)
+    for wname, esname in zip(node.params[0::3], node.params[1::3]):
+        w = params[wname]
+        n = w.shape[-1]
+        k = w.numel() // n
+        if extreme:
+            wv = np.full(tuple(w.shape), 127, np.int8)
+            scale = rng.uniform(0.2, 0.99, n)
+        else:
+            wv = rng.choice(np.array([127, -127], np.int8), size=tuple(w.shape))
+            scale = rng.uniform(0.5, 8.0, n) * np.sqrt(k)
+        p[wname] = torch.as_tensor(wv).to(dev)
+        p[esname] = torch.as_tensor((scale / (127 * k)).astype(np.float32)).to(dev)
+    if extreme:
+        return p, torch.full_like(x_q, 127)
+    return p, torch.as_tensor(rng.choice(np.array([127, -127], np.int8),
+                                         size=tuple(x_q.shape))).to(dev)
+
+
+def _ragged_chains(rng, dev):
+    """Chains off the main path: bands that do not divide H, Cm not a
+    multiple of 16, Cin != Cout with a downsample, 1-3 blocks with the
+    adds' relu on and off, stage 4 at batch 1. On 132 SMs the first three
+    take bands of 2, 2 and 5 rows. -> (blocks, x, name)."""
+    cases = []
+    for b, h, w, cin, cm, cout, nblocks, down in [
+            (64, 9, 13, 48, 40, 64, 2, True), (64, 9, 13, 64, 40, 64, 1, False),
+            (96, 12, 12, 32, 32, 96, 3, True), (3, 8, 8, 64, 16, 64, 3, False),
+            (1, 7, 7, 2048, 512, 2048, 2, False)]:
+        for relu in (False, True):
+            blocks = []
+            for i in range(nblocks):
+                k = cin if i == 0 else cout
+                convs = [("1", k, cm), ("2", 9 * cm, cm), ("3", cm, cout)]
+                if down and i == 0:
+                    convs.append(("d", k, cout))
+                blk = {"sa_over_so": float(rng.uniform(0.5, 1.5)),
+                       "sb_over_so": float(rng.uniform(0.5, 1.5)), "relu": relu}
+                for key, kk, n in convs:
+                    wshape = (3, 3, cm, cm) if key == "2" else (kk, n)
+                    blk["w" + key] = rng.integers(-127, 128, wshape, dtype=np.int8)
+                    blk["es" + key] = (rng.uniform(0.5, 2.0, n) * 40
+                                       / (127 * 127 * np.sqrt(kk))).astype(np.float32)
+                    blk["eb" + key] = rng.normal(0, 3, n).astype(np.float32)
+                blocks.append({k_: torch.as_tensor(v).to(dev) if isinstance(v, np.ndarray)
+                               else v for k_, v in blk.items()})
+            x = torch.as_tensor(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)).to(dev)
+            name = f"ragged_{b}x{h}x{w}x{cin}_cm{cm}_{cout}_{nblocks}blocks_relu{int(relu)}"
+            cases.append((blocks, x, name))
+    return cases
 
 
 class KernelStats:
@@ -283,34 +394,43 @@ class KernelStats:
                   for name in KERNELS}
         self.mismatches = []
 
-    def compare(self, kernel, node, params, x_q, what):
-        y = _call(node, params, x_q)
-        yp = _call(node, params, x_q, plain=True)
+    def check(self, kernel, what, y, yp):
+        """Record the kernel's output ``y`` against the plain version's."""
         torch.cuda.synchronize()
         err = int((y.to(torch.int32) - yp.to(torch.int32)).abs().max())
         s = self.k[kernel]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s["checks"] += 1
         if err or y.shape != yp.shape:
-            self.mismatches.append(f"{kernel} {node.name} {what}: max |err| {err}")
+            self.mismatches.append(f"{kernel} {what}: max |err| {err}")
         return y
+
+    def compare(self, kernel, node, params, x_q, what):
+        return self.check(kernel, f"{node.name} {what}", _call(node, params, x_q),
+                          _call(node, params, x_q, plain=True))
 
     def time(self, kernel, node, params, x_q, y, mult):
         ms = cuda_ms(lambda: _call(node, params, x_q), 20)
         plain_ms = cuda_ms(lambda: _call(node, params, x_q, plain=True), 3)
-        library_ms = cuda_ms(_library(node, params, x_q), 20)
-        nbytes, ops = _work(node, x_q, y)
+        library = _library(node, params, x_q)
+        library_ms = cuda_ms(library, 20) if library else None
+        nbytes, ops = _work(node, params, x_q, y)
         bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
         ops_ms = ops / H100_INT8_OPS_PER_S * 1e3
         s = self.k[kernel]
         s["ms"] += ms * mult
         s["plain_ms"] += plain_ms * mult
-        s["library_ms"] += library_ms * mult
+        s["library_ms"] = None if library_ms is None else s["library_ms"] + library_ms * mult
         s["bound_ms"] += max(bytes_ms, ops_ms) * mult
         s["bytes_bound_ms"] += bytes_ms * mult if bytes_ms >= ops_ms else 0.0
+        if node.op == "qblockchain":
+            shape = {"blocks": len(node.attrs["blocks"]),
+                     "cm": [blk["cm"] for blk in node.attrs["blocks"]]}
+        else:
+            shape = {"kshape": node.attrs["kshape"], "strides": node.attrs.get("strides"),
+                     "wfmt": node.attrs["wfmt"]}
         self.rows.append({"kernel": kernel, "node": node.name, "count": mult,
-                          "x": list(x_q.shape), "kshape": node.attrs["kshape"],
-                          "strides": node.attrs.get("strides"), "wfmt": node.attrs["wfmt"],
+                          "x": list(x_q.shape), **shape,
                           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                           "bytes_ms": bytes_ms, "ops_ms": ops_ms})
 
@@ -362,26 +482,69 @@ def phase_kernels(engines, images):
     return stats, plain_envs
 
 
-def phase_main(engines, cpu_engine, images, plain_envs):
-    """The main path through Engine.run; returns (launches per b64 forward,
-    summary). At batch 1 every node and the logits must also equal the
+def phase_chains(engines, images, stats):
+    """Holds every chain of the block-fused Engines against the plain
+    chain, then the ragged chains; returns the plain path's values of every
+    node at each batch."""
+    from tf2_tpu_torch.graph import execute
+    from tf2_tpu_torch.kernels import qblocks
+
+    rng = np.random.default_rng(2)
+    plain_envs = {}
+    for b, eng in engines.items():
+        _, env = execute(eng.graph, intermediates=True, plain=True)(eng.params,
+                                                                    image=images[b])
+        plain_envs[b] = env
+        for node in eng.graph.nodes:
+            if node.op != "qblockchain":
+                continue
+            x = env[node.inputs[0]]
+            y = stats.compare("qblockchain", node, eng.params, x, f"b{b} main-path input")
+            xr = torch.as_tensor(rng.integers(-127, 128, tuple(x.shape), dtype=np.int8)).to(x.device)
+            stats.compare("qblockchain", _flip_relu(node), eng.params, xr,
+                          f"b{b} random, relu flipped")
+            for extreme in (True, False):
+                p, xa = _chain_adversarial(node, eng.params, rng, x, extreme)
+                stats.compare("qblockchain", node, p, xa, f"b{b} +-127 extreme={extreme}")
+            if b == 64:
+                stats.time("qblockchain", node, eng.params, x, y, 1)
+            else:
+                log(f"chain {node.name} b{b}: "
+                    f"{cuda_ms(lambda: _call(node, eng.params, x), 20):.6f} ms")
+    for blocks, x, name in _ragged_chains(rng, images[1].device):
+        stats.check("qblockchain", name, qblocks.qblockchain(x, blocks),
+                    qblocks.qblockchain_plain(x, blocks))
+    if stats.mismatches:
+        raise RuntimeError("the chain kernel disagrees with the plain chain:\n"
+                           + "\n".join(stats.mismatches))
+    log(f"chains: {stats.k['qblockchain']['checks']} checks, max |err| "
+        f"{stats.k['qblockchain']['max_abs_err']}")
+    return plain_envs
+
+
+def phase_main(engines, cpu_engine, images, plain_envs, expected, same_as=None):
+    """A path through Engine.run: launch counts per forward must equal
+    ``expected``; returns (launches per b64 forward, summary, logits by
+    batch). At batch 1 every node and the logits must also equal the
     Engine on the CPU, whose plain path the CPU tests hold against
-    tf2_tpu."""
+    tf2_tpu; with ``same_as`` the logits must equal those bit for bit."""
     from tf2_tpu_torch import kernels
     from tf2_tpu_torch.graph import execute
 
-    summary, launches = {}, None
+    summary, launches, all_logits = {}, None, {}
     for b, eng in engines.items():
         kernels.reset_launch_counts()
         logits = eng.run(image=images[b])
         counts = kernels.launch_counts()
-        if counts != EXPECTED_LAUNCHES:
-            raise RuntimeError(f"b{b}: launches per forward {counts}, "
-                               f"expected {EXPECTED_LAUNCHES}")
+        if counts != expected:
+            raise RuntimeError(f"b{b}: launches per forward {counts}, expected {expected}")
         if b == 64:
             launches = counts
+        all_logits[b] = logits
         if tuple(logits.shape) != (b, 1000) or not bool(torch.isfinite(logits).all()):
             raise RuntimeError(f"b{b}: logits {tuple(logits.shape)} not finite (B, 1000)")
+        if same_as is not None and not torch.equal(logits, same_as[b]):
+            raise RuntimeError(f"b{b}: logits differ from the default Engine's")
         _, env = execute(eng.graph, intermediates=True)(eng.params, image=images[b])
         differ = [n.name for n in eng.graph.nodes
                   if not torch.equal(env[n.name], plain_envs[b][n.name])]
@@ -405,18 +568,23 @@ def phase_main(engines, cpu_engine, images, plain_envs):
                             "logits_absmax": float(logits.abs().max())}
         log(f"main b{b}: {counts}, {len(eng.graph.nodes)} nodes equal the plain path, "
             f"{bench['throughput_per_s']:.1f} img/s, {bench['latency_s'] * 1e3:.3f} ms/forward")
-    return launches, summary
+    return launches, summary, all_logits
 
 
 def main() -> int:
     smi = phase_card()
     phase_build()
-    engines, cpu_engine = phase_artifact()
+    engines, cpu_engines = phase_artifact()
     rng = np.random.default_rng(0)
     images = {b: torch.as_tensor(rng.standard_normal(
-        (b, 224, 224, 3), dtype=np.float32)).cuda() for b in engines}
-    stats, plain_envs = phase_kernels(engines, images)
-    launches, summary = phase_main(engines, cpu_engine, images, plain_envs)
+        (b, 224, 224, 3), dtype=np.float32)).cuda() for b in (64, 1)}
+    stats, plain_envs = phase_kernels(engines[False], images)
+    launches, summary, logits = phase_main(engines[False], cpu_engines[False], images,
+                                           plain_envs, EXPECTED_LAUNCHES)
+    fused_envs = phase_chains(engines[True], images, stats)
+    fused_launches, summary["block_fusion"], _ = phase_main(
+        engines[True], cpu_engines[True], images, fused_envs, FUSED_LAUNCHES, same_as=logits)
+    launches["qblockchain"] = fused_launches["qblockchain"]
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         s = stats.k[name]

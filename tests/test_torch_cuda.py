@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from tf2_tpu_torch import kernels
-from tf2_tpu_torch.kernels import qconv, shift_matmul
+from tf2_tpu_torch.kernels import qblocks, qconv, shift_matmul
 from tf2_tpu_torch.transform import potq
 
 
@@ -112,7 +112,7 @@ def test_engine_every_node_equals_plain(cuda):
     kernels.reset_launch_counts()
     logits = eng.run(image=x)
     assert kernels.launch_counts() == {"qmatmul_pot4": 9, "qmatmul_int8": 1,
-                                       "qconv_s1": 1, "qconv_s2": 7}
+                                       "qconv_s1": 1, "qconv_s2": 7, "qblockchain": 0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
@@ -120,3 +120,91 @@ def test_engine_every_node_equals_plain(cuda):
         assert torch.equal(env[n.name], plain[n.name]), n.name
     cpu = Engine(art.graph, art.params, device="cpu").run(image=x)
     assert torch.equal(logits.cpu(), cpu)
+
+
+def _chain(rng, dev, cin, cm, cout, nblocks, down, relu):
+    blocks = []
+    for i in range(nblocks):
+        k = cin if i == 0 else cout
+        blk = {"w1": rng.integers(-127, 128, (k, cm), dtype=np.int8),
+               "w2": rng.integers(-127, 128, (3, 3, cm, cm), dtype=np.int8),
+               "w3": rng.integers(-127, 128, (cm, cout), dtype=np.int8)}
+        convs = [("1", k, cm), ("2", 9 * cm, cm), ("3", cm, cout)]
+        if down and i == 0:
+            blk["wd"] = rng.integers(-127, 128, (k, cout), dtype=np.int8)
+            convs.append(("d", k, cout))
+        for key, kk, n in convs:
+            # scales that put the accumulators' spread across the int8 range
+            blk["es" + key] = (rng.uniform(0.5, 2.0, n) * 40 / (127 * 127 * np.sqrt(kk))
+                               ).astype(np.float32)
+            blk["eb" + key] = rng.normal(0, 3, n).astype(np.float32)
+        blk = {k_: torch.as_tensor(v).to(dev) for k_, v in blk.items()}
+        blk.update(sa_over_so=float(rng.uniform(0.5, 1.5)),
+                   sb_over_so=float(rng.uniform(0.5, 1.5)), relu=relu)
+        blocks.append(blk)
+    return blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cm,cout,nblocks,down", [
+    (64, 9, 13, 48, 40, 64, 2, True),       # bands of 2 rows on 9; Cm % 16 != 0
+    (64, 9, 13, 64, 40, 64, 1, False),
+    (96, 12, 12, 32, 32, 96, 3, True),      # bands of 5 on 12; Cin != Cout, downsample
+    (3, 8, 8, 64, 16, 64, 3, False),
+    (1, 7, 7, 2048, 512, 2048, 2, False),   # stage 4 at batch 1
+])
+@pytest.mark.parametrize("relu", [False, True])
+def test_qblockchain_kernel_matches_plain(cuda, b, h, w, cin, cm, cout, nblocks, down, relu):
+    """The chain kernel equals the plain chain on ragged chains. The band
+    heights in the comments are those ``band_rows`` picks on 132 SMs (an
+    H100 SXM); tests/test_torch_qblocks.py pins them."""
+    rng = np.random.default_rng(cin + cm + nblocks)
+    blocks = _chain(rng, cuda, cin, cm, cout, nblocks, down, relu)
+    x = torch.as_tensor(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)).to(cuda)
+    before = kernels.launch_counts()["qblockchain"]
+    got = qblocks.qblockchain(x, blocks)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["qblockchain"] == before + 1
+    want = qblocks.qblockchain_plain(x, blocks)
+    assert got.shape == (b, h, w, cout) and torch.equal(got, want)
+    assert 0 < int((want != 0).sum()) < want.numel()
+
+
+@pytest.mark.cuda
+def test_qblockchain_refuses_what_it_does_not_take(cuda):
+    """An identity block that changes the channel count, and a block whose
+    w1 does not take the input's channels, raise instead of launching."""
+    rng = np.random.default_rng(0)
+    x = torch.zeros((1, 8, 8, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        qblocks.qblockchain(x, _chain(rng, cuda, 32, 16, 64, 1, False, True))
+    with pytest.raises(ValueError, match="does not take"):
+        qblocks.qblockchain(x, _chain(rng, cuda, 64, 16, 64, 1, False, True))
+
+
+@pytest.mark.cuda
+def test_block_fused_engine_every_node_equals_plain(cuda):
+    """Engine(block_fusion=True) on a small ResNet (depths 2-2-2-2) on the
+    card: four chain launches a forward, every node equal to the plain
+    path, logits equal to the fused Engine on the CPU and to the unfused
+    Engine on the card."""
+    from tf2_tpu_torch.graph import execute
+    from tf2_tpu_torch.models import synthetic_quantized
+    from tf2_tpu_torch.runtime import Engine
+
+    art = synthetic_quantized("resnet50", seed=0, batch=2, image=64,
+                              depths=(2, 2, 2, 2), classes=64)
+    x = np.random.default_rng(0).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    eng = Engine(art.graph, art.params, block_fusion=True)
+    kernels.reset_launch_counts()
+    logits = eng.run(image=x)
+    assert kernels.launch_counts() == {"qmatmul_pot4": 6, "qmatmul_int8": 1,
+                                       "qconv_s1": 0, "qconv_s2": 7, "qblockchain": 4}
+    xt = torch.as_tensor(x).to(cuda)
+    _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
+    _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
+    for n in eng.graph.nodes:
+        assert torch.equal(env[n.name], plain[n.name]), n.name
+    cpu = Engine(art.graph, art.params, device="cpu", block_fusion=True).run(image=x)
+    assert torch.equal(logits.cpu(), cpu)
+    assert torch.equal(logits, Engine(art.graph, art.params).run(image=x))

@@ -28,6 +28,11 @@ def _qdense(node, params, x, plain=False):
     return dispatch.qdense(node, params, x, plain=plain)
 
 
+@register_op("qblockchain", kernel=True)
+def _qblockchain(node, params, x, plain=False):
+    return dispatch.qblockchain(node, params, x, plain=plain)
+
+
 @register_op("qadd")
 def _qadd(node, params, a, b):
     return dispatch.qadd(node, params, a, b)

@@ -19,7 +19,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("shift_matmul.cu", "qconv.cu")
+SOURCES = ("shift_matmul.cu", "qconv.cu", "qblocks.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

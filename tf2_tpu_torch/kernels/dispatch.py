@@ -7,7 +7,7 @@ import functools
 
 import torch
 
-from . import qconv, shift_matmul
+from . import qblocks, qconv, shift_matmul
 
 
 @functools.lru_cache(maxsize=256)
@@ -44,6 +44,31 @@ def qdense(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor
         x_q.reshape(-1, x_q.shape[-1]), params[node.params[0]], params[node.params[1]],
         params[node.params[2]], node.attrs["relu"], node.attrs["wfmt"], plain)
     return y.reshape(*x_q.shape[:-1], y.shape[-1])
+
+
+def qblockchain(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """A fused chain of bottleneck blocks (graph/optimize.
+    fuse_bottleneck_chains): the node's params, c1, c2, c3 (and the
+    downsample) of each block in order, become the kernel's block dicts."""
+    blocks = []
+    it = iter(node.params)
+    for battrs in node.attrs["blocks"]:
+        cm, cout = battrs["cm"], battrs["cout"]
+        convs = [("1", (-1, cm)), ("2", (3, 3, cm, cm)), ("3", (cm, cout))]
+        if battrs["down"]:
+            convs.append(("d", (-1, cout)))
+        blk = {}
+        for key, shape in convs:
+            blk["w" + key] = params[next(it)].reshape(shape)
+            blk["es" + key] = params[next(it)]
+            blk["eb" + key] = params[next(it)]
+        # a double division on the host, then f32 (as the reference's
+        # np.float32(sa / so)): never an f32 division on the device
+        blk["sa_over_so"] = battrs["sa"] / battrs["so"]
+        blk["sb_over_so"] = battrs["sb"] / battrs["so"]
+        blk["relu"] = battrs["relu"]
+        blocks.append(blk)
+    return qblocks.fused_qblockchain(x_q, blocks, plain)
 
 
 def qadd(node, params, a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:

@@ -10,40 +10,31 @@ import torch
 
 from ..graph.execute import execute
 from ..graph.ir import Graph, Node, TensorSpec
-from ..graph.optimize import fuse_stem_quantize
+from ..graph.optimize import fuse_bottleneck_chains, fuse_stem_quantize
 from ..kernels.qconv import covers
 from ..transform import potq
 
 
-def _predecode_fallback_weights(graph: Graph, params):
-    """Decode, once at load, the 4-bit PoT codes of every pot4 qconv2d or
-    qdense that the kernels cannot take packed. A conv keeps its packed
-    codes when it is ungrouped with equal strides of 1 or 2 and an even K;
-    a dense when its K is even. The rest get int8 weights (``.wq``)."""
+def _decode_pot4(graph: Graph, params, names: set[str]):
+    """Decode, once at load, the 4-bit PoT codes of the named pot4 qconv2d
+    and qdense nodes: each gets int8 weights (``.wq``) in place of its
+    packed codes."""
     new_nodes, new_params = [], dict(params)
     new_specs = dict(graph.params)
     changed = False
     for n in graph.nodes:
-        if n.op in ("qconv2d", "qdense") and n.attrs.get("wfmt") == "pot4":
-            if n.op == "qconv2d":
-                kh, kw, cin_g, cout = n.attrs["kshape"]
-                kflat, wshape = kh * kw * cin_g, (kh, kw, cin_g, cout)
-                keep = covers(n.attrs["kshape"], n.attrs.get("strides", [1, 1]),
-                              n.attrs.get("groups", 1))
-            else:
-                kflat, cout = n.attrs["kshape"]
-                wshape, keep = (kflat, cout), True
-            if not (keep and kflat % 2 == 0):
-                codes = potq.unpack_codes_np(np.asarray(params[n.params[0]]), kflat)
-                wq = potq.pot_decode_np(codes).reshape(wshape)
-                wq_name = n.params[0].replace(".wp", ".wq")
-                new_params[wq_name] = wq
-                new_params.pop(n.params[0], None)
-                new_specs[wq_name] = TensorSpec(wq.shape, "int8")
-                new_specs.pop(n.params[0], None)
-                n = Node(n.name, n.op, n.inputs, (wq_name,) + n.params[1:],
-                         dict(n.attrs, wfmt="int8"))
-                changed = True
+        if n.name in names:
+            kflat = int(np.prod(n.attrs["kshape"][:-1]))
+            codes = potq.unpack_codes_np(np.asarray(params[n.params[0]]), kflat)
+            wq = potq.pot_decode_np(codes).reshape(n.attrs["kshape"])
+            wq_name = n.params[0].replace(".wp", ".wq")
+            new_params[wq_name] = wq
+            new_params.pop(n.params[0], None)
+            new_specs[wq_name] = TensorSpec(wq.shape, "int8")
+            new_specs.pop(n.params[0], None)
+            n = Node(n.name, n.op, n.inputs, (wq_name,) + n.params[1:],
+                     dict(n.attrs, wfmt="int8"))
+            changed = True
         new_nodes.append(n)
     if not changed:
         return graph, params
@@ -51,6 +42,34 @@ def _predecode_fallback_weights(graph: Graph, params):
               new_specs, dict(graph.meta))
     g.validate()
     return g, new_params
+
+
+def _predecode_fallback_weights(graph: Graph, params):
+    """Decode the pot4 qconv2d and qdense nodes that the kernels cannot
+    take packed. A conv keeps its packed codes when it is ungrouped with
+    equal strides of 1 or 2 and an even K; a dense when its K is even."""
+    names = set()
+    for n in graph.nodes:
+        if n.op in ("qconv2d", "qdense") and n.attrs.get("wfmt") == "pot4":
+            keep = n.op == "qdense" or covers(n.attrs["kshape"],
+                                               n.attrs.get("strides", [1, 1]),
+                                               n.attrs.get("groups", 1))
+            if not (keep and np.prod(n.attrs["kshape"][:-1]) % 2 == 0):
+                names.add(n.name)
+    return _decode_pot4(graph, params, names)
+
+
+def _fuse_chains(graph: Graph, params):
+    """``fuse_bottleneck_chains`` on the port's graph. The pass matches
+    int8 convs only, and predecode keeps every conv the kernels take as
+    pot4, so first decode exactly the convs that end up in a chain: those
+    the pass fuses when every pot4 conv is decoded. The others keep their
+    packed codes."""
+    pot4 = {n.name for n in graph.nodes
+            if n.op == "qconv2d" and n.attrs.get("wfmt") == "pot4"}
+    trial, _ = fuse_bottleneck_chains(*_decode_pot4(graph, params, pot4))
+    graph, params = _decode_pot4(graph, params, pot4 - {n.name for n in trial.nodes})
+    return fuse_bottleneck_chains(graph, params)
 
 
 def _resolve_device(device: str | torch.device) -> torch.device:
@@ -67,14 +86,20 @@ class Engine:
 
     >>> eng = Engine(graph, params)            # on cuda
     >>> logits = eng.run(image=batch)          # NHWC f32 in, logits out
+
+    ``block_fusion=True`` rewrites runs of stride-1 bottleneck blocks into
+    ``qblockchain`` nodes, each run by the chain kernel (``kernels/
+    qblocks.py``) with int8 weights. Off by default, as in the reference.
     """
 
     def __init__(self, graph: Graph, params: Mapping[str, np.ndarray],
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", block_fusion: bool = False):
         self.device = _resolve_device(device)
         graph.validate()
         graph, params = _predecode_fallback_weights(graph, params)
         graph, params = fuse_stem_quantize(graph, params)
+        if block_fusion:
+            graph, params = _fuse_chains(graph, params)
         self.graph = graph
         self.params = {k: torch.as_tensor(np.asarray(v)).to(self.device)
                        for k, v in params.items()}

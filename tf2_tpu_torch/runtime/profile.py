@@ -5,13 +5,14 @@ torch.profiler trace.
 
 Builds the synthetic W4-PoT ResNet-50 (224x224, 1000 classes), warms an
 Engine up at batch 64 and at batch 1, then profiles 5 back-to-back forwards
-of each. Prints one JSON line per batch: device time per forward by kernel family (the
-port's four kernels by name, PyTorch's own kernels by short name) and by
+of each; then the same for ``Engine(block_fusion=True)``. Prints one JSON
+line per engine and batch: device time per forward by kernel family (the
+port's kernels by name, PyTorch's own kernels by short name) and by
 graph op (the executor's "<op>:<node>" ranges, where the trace has them on
 the device timeline), the host wall time per forward, and the device's
 idle share of that wall time (1 - union of kernel intervals / wall).
 With ``--trace-dir`` the Chrome traces are kept there as
-``profile_b<B>.json``.
+``profile_b<B>.json`` and ``profile_fused_b<B>.json``.
 """
 from __future__ import annotations
 
@@ -104,12 +105,16 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir = args.trace_dir or tmp
         os.makedirs(trace_dir, exist_ok=True)
-        for b in BATCHES:
-            eng = Engine(art.graph.with_batch_size(b), art.params)
-            image = torch.as_tensor(
-                rng.standard_normal((b, 224, 224, 3), dtype=np.float32)).cuda()
-            out = profile(eng, image, os.path.join(trace_dir, f"profile_b{b}.json"))
-            print(json.dumps({"batch": b, "device": torch.cuda.get_device_name(0), **out}))
+        images = {b: torch.as_tensor(rng.standard_normal((b, 224, 224, 3),
+                                                         dtype=np.float32)).cuda()
+                  for b in BATCHES}
+        for fused in (False, True):
+            for b in BATCHES:
+                eng = Engine(art.graph.with_batch_size(b), art.params, block_fusion=fused)
+                name = f"profile_{'fused_' if fused else ''}b{b}.json"
+                out = profile(eng, images[b], os.path.join(trace_dir, name))
+                print(json.dumps({"batch": b, "block_fusion": fused,
+                                  "device": torch.cuda.get_device_name(0), **out}))
 
 
 if __name__ == "__main__":
