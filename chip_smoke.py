@@ -20,7 +20,7 @@ Phases, in order; any failure exits non-zero before the last line:
              the GEMMs, bf16 F.conv2d for the convs) with CUDA events at
              the batch-64 shapes.
  5. main     Engine.run at batch 64 and 1 with launch counts per forward
-             (33 / 1 / 13 / 7 / 0), finite (B, 1000) logits, every node
+             (33 / 1 / 13 / 7 / 0 / 0), finite (B, 1000) logits, every node
              equal to the plain path on the card and, at batch 1, to the
              Engine on the CPU; Engine.benchmark img/s and latency.
  6. chains   Engine(block_fusion=True) at batch 64 and 1 from the same
@@ -30,12 +30,34 @@ Phases, in order; any failure exits non-zero before the last line:
              chain timed at batch 64 (kernel, plain, bound) and its kernel
              at batch 1.
  7. fused    Engine(block_fusion=True).run at batch 64 and 1: launch counts
-             per forward (6 / 1 / 0 / 7 / 4), every node equal to the plain
-             path and, at batch 1, to the fused Engine on the CPU; logits
-             equal to phase 5's bit for bit; Engine.benchmark beside it.
-Prints the kernels JSON line (launches: qblockchain's from phase 7, the
-others' from phase 5), the card line and, last, the contract line; the
-per-shape timings go to stderr as one JSON line.
+             per forward (6 / 1 / 0 / 7 / 4 / 0), every node equal to the
+             plain path and, at batch 1, to the fused Engine on the CPU;
+             logits equal to phase 5's bit for bit; Engine.benchmark beside
+             it.
+ 8. googlenet full-width GoogLeNet (224x224, 1000 classes, two LRNs): the
+             artifact round trip, Engines at batch 64 and 1 and on the CPU
+             at batch 1, default and with merge_1x1=True. Every conv and
+             dense node of both graphs against its plain version as in
+             phase 4 (the 5x5 convs, cout 16-384, merged widths such as
+             296); every qlrn node against qlrn_plain on its real input at
+             both batches, at the same shapes on random and on +-127 inputs
+             under three (s_in, s_out, alpha) sets at radius 1 and 2, and
+             on ragged shapes (odd M, C = 13, C < 2r + 1, M = 1), all with
+             0 mismatches; qlrn timed at batch 64 (kernel, plain, bound,
+             F.local_response_norm as the yardstick). Then both Engines as
+             in phase 5: launch counts per forward (37 / 1 / 19 / 1 / 0 / 2
+             default, 10 / 10 / 19 / 1 / 0 / 2 merged), every node equal to
+             the plain path and at batch 1 to the CPU Engine, merged logits
+             equal to the default's bit for bit, Engine.benchmark.
+ 9. squeezenet  the same for SqueezeNet v1.1, which has no LRN: launch
+             counts 16 / 1 / 8 / 1 / 0 / 0 default and 12 / 1 / 8 / 1 / 0 / 0
+             merged (fires 2-5 merge e1x1 into an int8 3x3).
+Launch counts are in the order (qmatmul_pot4, qmatmul_int8, qconv_s1,
+qconv_s2, qblockchain, qlrn). Prints the kernels JSON line (launches:
+qblockchain's from phase 7, qlrn's from phase 8, the others' from phase 5;
+times at ResNet-50's shapes, qlrn's at GoogLeNet's), the card line and,
+last, the contract line; the per-shape timings go to stderr as one JSON
+line.
 """
 from __future__ import annotations
 
@@ -50,6 +72,8 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 H100_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same source
+H100_F32_OPS_PER_S = 67e12     # f32 outside the tensor cores, same source
+H100_F64_OPS_PER_S = 34e12     # f64 outside the tensor cores, same source
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "qmatmul_pot4": ("tf2_tpu_torch/kernels/csrc/shift_matmul.cu",
                      "tf2_tpu/kernels/shift_matmul.py:40"),
@@ -58,11 +82,25 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "qconv_s1": ("tf2_tpu_torch/kernels/csrc/qconv.cu", "tf2_tpu/kernels/qconv.py:98"),
     "qconv_s2": ("tf2_tpu_torch/kernels/csrc/qconv.cu", "tf2_tpu/kernels/qconv.py:166"),
     "qblockchain": ("tf2_tpu_torch/kernels/csrc/qblocks.cu", "tf2_tpu/kernels/qblocks.py:104"),
+    "qlrn": ("tf2_tpu_torch/kernels/csrc/qlrn.cu", "tf2_tpu/kernels/qlrn.py:66"),
 }
-EXPECTED_LAUNCHES = {"qmatmul_pot4": 33, "qmatmul_int8": 1, "qconv_s1": 13, "qconv_s2": 7,
-                     "qblockchain": 0}
-FUSED_LAUNCHES = {"qmatmul_pot4": 6, "qmatmul_int8": 1, "qconv_s1": 0, "qconv_s2": 7,
-                  "qblockchain": 4}
+KERNEL_NAMES = tuple(KERNELS)
+
+
+def _launches(*counts):
+    return dict(zip(KERNEL_NAMES, counts))
+
+
+# launches a forward: (pot4 GEMM, int8 GEMM, conv s1, conv s2, chain, qlrn)
+EXPECTED_LAUNCHES = _launches(33, 1, 13, 7, 0, 0)
+FUSED_LAUNCHES = _launches(6, 1, 0, 7, 4, 0)
+ZOO_LAUNCHES = {  # model -> {merge_1x1: launches}
+    "googlenet": {False: _launches(37, 1, 19, 1, 0, 2), True: _launches(10, 10, 19, 1, 0, 2)},
+    "squeezenet_v1_1": {False: _launches(16, 1, 8, 1, 0, 0), True: _launches(12, 1, 8, 1, 0, 0)},
+}
+# (s_in, s_out, alpha) for qlrn on random inputs: the synthetic scales keep
+# t within 0.4% of 1; these move it across the epilogue's range
+QLRN_SCALES = [(0.0312, 0.0279, 2e-4), (0.5, 0.37, 1e-4), (0.2, 0.05, 1e-3)]
 
 
 def log(msg: str) -> None:
@@ -104,27 +142,31 @@ def phase_build():
             log(report.read_text().strip())
 
 
-def phase_artifact():
+def phase_artifact(name: str, option: str, **kwargs):
+    """The model's synthetic artifact, saved and loaded back; Engines at
+    batch 64 and 1 and on the CPU at batch 1, each with ``option`` (an
+    Engine flag) off and on. -> (engines[flag][batch], cpu_engines[flag])."""
     from tf2_tpu_torch.models import synthetic_quantized
     from tf2_tpu_torch.runtime import Engine
     from tf2_tpu_torch.transform import load_artifact, save_artifact
 
     t = time.time()
-    art = synthetic_quantized("resnet50", seed=0, batch=64, image=224, classes=1000,
-                              depths=(3, 4, 6, 3))
+    art = synthetic_quantized(name, seed=0, batch=64, image=224, classes=1000, **kwargs)
     with tempfile.TemporaryDirectory() as d:
         save_artifact(d, art.graph, art.params)
         graph, params = load_artifact(d)
+    if graph.to_json() != art.graph.to_json():
+        raise RuntimeError(f"{name}: artifact round trip changed the graph")
     for k, v in art.params.items():
         if not np.array_equal(params[k], v):
-            raise RuntimeError(f"artifact round trip changed {k}")
+            raise RuntimeError(f"{name}: artifact round trip changed {k}")
     engines, cpu_engines = {}, {}
-    for fused in (False, True):
-        engines[fused] = {b: Engine(graph.with_batch_size(b), params, block_fusion=fused)
-                          for b in (64, 1)}
-        cpu_engines[fused] = Engine(graph.with_batch_size(1), params, device="cpu",
-                                    block_fusion=fused)
-    log(f"artifact: {len(params)} tensors, {art.size_bytes() / 1e6:.1f} MB, "
+    for flag in (False, True):
+        engines[flag] = {b: Engine(graph.with_batch_size(b), params, **{option: flag})
+                         for b in (64, 1)}
+        cpu_engines[flag] = Engine(graph.with_batch_size(1), params, device="cpu",
+                                   **{option: flag})
+    log(f"artifact {name}: {len(params)} tensors, {art.size_bytes() / 1e6:.1f} MB, "
         f"transform + save + load + engines {time.time() - t:.1f} s")
     return engines, cpu_engines
 
@@ -144,6 +186,8 @@ def _call(node, params, x_q, plain=False):
         return dispatch.qconv2d(_conv_node(node), params, x_q, plain=plain)
     if node.op == "qblockchain":
         return dispatch.qblockchain(node, params, x_q, plain=plain)
+    if node.op == "qlrn":
+        return dispatch.qlrn(node, params, x_q, plain=plain)
     return dispatch.qdense(node, params, x_q, plain=plain)
 
 
@@ -167,8 +211,30 @@ def _taps(size: int, k: int, s: int, p0: int, out: int) -> tuple[int, int]:
     return len(np.unique(idx[inside])), int(inside.sum())
 
 
+def _bound_ms(node, params, x_q, y) -> tuple[float, float]:
+    """(bytes over the memory rate, operations over their peak rate) in ms
+    for the function of the node on these inputs."""
+    if node.op == "qlrn":
+        return _qlrn_bound_ms(node, x_q)
+    nbytes, ops = _work(node, params, x_q, y)
+    return nbytes / H100_BYTES_PER_S * 1e3, ops / H100_INT8_OPS_PER_S * 1e3
+
+
+def _qlrn_bound_ms(node, x_q) -> tuple[float, float]:
+    """qlrn reads each int8 input once and writes each output once. Per
+    element it needs 11 f32 operations (dequantize, square, alpha * win,
+    + bias, two square roots, the reciprocal, two multiplies, / s_out,
+    round) and, in f64, one add fewer than its window has channels."""
+    c = x_q.shape[-1]
+    m = x_q.numel() // c
+    r = node.attrs.get("radius", 2)
+    window_adds = sum(min(ch + r, c - 1) - max(ch - r, 0) for ch in range(c))
+    ops_ms = (11 * m * c / H100_F32_OPS_PER_S + m * window_adds / H100_F64_OPS_PER_S) * 1e3
+    return 2 * m * c / H100_BYTES_PER_S * 1e3, ops_ms
+
+
 def _work(node, params, x_q, y) -> tuple[float, float]:
-    """(bytes, operations) the function needs: each input element the
+    """(bytes, operations) of a conv, dense or chain: each input element the
     function reads, read once (a strided 1x1 conv reads one pixel in four),
     the weights, es and eb read once, the output written once; 2 operations
     per multiply-accumulate, counting only the taps inside the image (not
@@ -215,8 +281,11 @@ def _chain_work(node, params, x_q, y) -> tuple[float, float]:
 
 def _library(node, params, x_q):
     """One PyTorch call computing the same product (no epilogue), used
-    only as a time: torch._int_mm for GEMMs, bf16 F.conv2d for convs. No
-    single PyTorch call computes a chain of bottleneck blocks: None."""
+    only as a time: torch._int_mm for GEMMs, bf16 F.conv2d for convs,
+    F.local_response_norm on the dequantized f32 tensor (its NCHW view,
+    alpha times the window so that its alpha / n is the node's alpha) for
+    qlrn. No single PyTorch call computes a chain of bottleneck blocks:
+    None."""
     import torch.nn.functional as F
 
     from tf2_tpu_torch.kernels import qconv
@@ -224,6 +293,12 @@ def _library(node, params, x_q):
 
     if node.op == "qblockchain":
         return None
+    if node.op == "qlrn":
+        a = node.attrs
+        size = 2 * a["radius"] + 1
+        xf = (x_q.to(torch.float32) * a["s_in"]).permute(0, 3, 1, 2)
+        return lambda: F.local_response_norm(xf, size, alpha=a["alpha"] * size,
+                                             beta=a["beta"], k=a["bias"])
     w = params[node.params[0]]
     if node.op == "qconv2d":
         kshape = tuple(node.attrs["kshape"])
@@ -405,6 +480,10 @@ class KernelStats:
             self.mismatches.append(f"{kernel} {what}: max |err| {err}")
         return y
 
+    def raise_on_mismatch(self, what: str) -> None:
+        if self.mismatches:
+            raise RuntimeError(f"{what}:\n" + "\n".join(self.mismatches))
+
     def compare(self, kernel, node, params, x_q, what):
         return self.check(kernel, f"{node.name} {what}", _call(node, params, x_q),
                           _call(node, params, x_q, plain=True))
@@ -414,9 +493,7 @@ class KernelStats:
         plain_ms = cuda_ms(lambda: _call(node, params, x_q, plain=True), 3)
         library = _library(node, params, x_q)
         library_ms = cuda_ms(library, 20) if library else None
-        nbytes, ops = _work(node, params, x_q, y)
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-        ops_ms = ops / H100_INT8_OPS_PER_S * 1e3
+        bytes_ms, ops_ms = _bound_ms(node, params, x_q, y)
         s = self.k[kernel]
         s["ms"] += ms * mult
         s["plain_ms"] += plain_ms * mult
@@ -426,6 +503,8 @@ class KernelStats:
         if node.op == "qblockchain":
             shape = {"blocks": len(node.attrs["blocks"]),
                      "cm": [blk["cm"] for blk in node.attrs["blocks"]]}
+        elif node.op == "qlrn":
+            shape = {"radius": node.attrs["radius"]}
         else:
             shape = {"kshape": node.attrs["kshape"], "strides": node.attrs.get("strides"),
                      "wfmt": node.attrs["wfmt"]}
@@ -435,14 +514,16 @@ class KernelStats:
                           "bytes_ms": bytes_ms, "ops_ms": ops_ms})
 
 
-def phase_kernels(engines, images):
-    """Holds every kernel against its plain version; returns (stats, the
-    plain path's values of every node at each batch)."""
+def phase_kernels(engines, images, stats, timed: bool):
+    """Holds every conv and dense node of the engines' graphs against its
+    plain version: on its real input (the plain path's value), with relu
+    flipped on random inputs, and with +-127 inputs; one node of each
+    distinct shape timed at batch 64 when ``timed``. Returns the plain
+    path's values of every node at each batch."""
     from tf2_tpu_torch.graph import execute
     from tf2_tpu_torch.kernels import dispatch
 
     rng = np.random.default_rng(1)
-    stats = KernelStats()
     plain_envs = {}
     for b, eng in engines.items():
         _, env = execute(eng.graph, intermediates=True, plain=True)(eng.params,
@@ -468,18 +549,61 @@ def phase_kernels(engines, images):
             for extreme in (True, False):
                 p, xa = _adversarial(node, eng.params, rng, x, extreme)
                 stats.compare(kernel, node, p, xa, f"b{b} +-127 extreme={extreme}")
-            if b == 64:
+            if timed and b == 64:
                 stats.time(kernel, node, eng.params, x, y, len(members))
-    for node, params, x in _ragged_cases(rng, images[1].device):
+    stats.raise_on_mismatch("kernels disagree with their plain versions")
+    return plain_envs
+
+
+def phase_ragged_kernels(stats, dev):
+    """The conv/GEMM kernels on shapes off the main paths."""
+    rng = np.random.default_rng(4)
+    for node, params, x in _ragged_cases(rng, dev):
         kernel = _which_kernel(node, params, x)
         for n in (node, _flip_relu(node)):
             stats.compare(kernel, n, params, x, "ragged")
-    if stats.mismatches:
-        raise RuntimeError("kernels disagree with their plain versions:\n"
-                           + "\n".join(stats.mismatches))
+    stats.raise_on_mismatch("kernels disagree with their plain versions")
     log("kernels: " + ", ".join(f"{k} {v['checks']} checks max |err| {v['max_abs_err']}"
                                 for k, v in stats.k.items()))
-    return stats, plain_envs
+
+
+def phase_qlrn(engine_by_batch, plain_envs, stats):
+    """Holds every qlrn node against ``qlrn_plain``: on its real input at
+    each batch, then at the same shapes on random int8 inputs and on +-127
+    inputs under each scale set of QLRN_SCALES at radius 1 and 2, then on
+    ragged shapes (odd pixel counts, C = 13, C < 2r + 1, one pixel); times
+    each node at batch 64 (kernel, plain, bound, library)."""
+    from tf2_tpu_torch.kernels import qlrn
+
+    rng = np.random.default_rng(5)
+    dev = next(iter(plain_envs[1].values())).device
+    for b, eng in engine_by_batch.items():
+        for node in (n for n in eng.graph.nodes if n.op == "qlrn"):
+            x = plain_envs[b][node.inputs[0]]
+            y = stats.compare("qlrn", node, eng.params, x, f"b{b} main-path input")
+            inputs = {"random": rng.integers(-127, 128, tuple(x.shape), dtype=np.int8),
+                      "+-127": rng.choice(np.array([-127, 127], np.int8), size=tuple(x.shape))}
+            for what, xv in inputs.items():
+                xr = torch.as_tensor(xv).to(dev)
+                for s_in, s_out, alpha in QLRN_SCALES:
+                    for radius in (1, 2):
+                        kw = dict(radius=radius, alpha=alpha, beta=0.75, bias=1.0,
+                                  s_in=s_in, s_out=s_out)
+                        stats.check("qlrn", f"{node.name} b{b} {what} {kw}",
+                                    qlrn.qlrn(xr, **kw), qlrn.qlrn_plain(xr, **kw))
+            if b == 64:
+                stats.time("qlrn", node, eng.params, x, y, 1)
+            else:
+                log(f"qlrn {node.name} b{b}: "
+                    f"{cuda_ms(lambda: _call(node, eng.params, x), 20):.6f} ms")
+    for m, c, radius in [(3137, 64, 2), (1001, 192, 1), (777, 13, 2), (5, 3, 2), (1, 192, 2)]:
+        xr = torch.as_tensor(rng.integers(-127, 128, (m, c), dtype=np.int8)).to(dev)
+        for s_in, s_out, alpha in QLRN_SCALES:
+            kw = dict(radius=radius, alpha=alpha, beta=0.75, bias=1.0, s_in=s_in, s_out=s_out)
+            stats.check("qlrn", f"ragged {m}x{c} {kw}", qlrn.qlrn(xr, **kw),
+                        qlrn.qlrn_plain(xr, **kw))
+    stats.raise_on_mismatch("the qlrn kernel disagrees with its plain version")
+    log(f"qlrn: {stats.k['qlrn']['checks']} checks, max |err| {stats.k['qlrn']['max_abs_err']}")
 
 
 def phase_chains(engines, images, stats):
@@ -514,15 +638,13 @@ def phase_chains(engines, images, stats):
     for blocks, x, name in _ragged_chains(rng, images[1].device):
         stats.check("qblockchain", name, qblocks.qblockchain(x, blocks),
                     qblocks.qblockchain_plain(x, blocks))
-    if stats.mismatches:
-        raise RuntimeError("the chain kernel disagrees with the plain chain:\n"
-                           + "\n".join(stats.mismatches))
+    stats.raise_on_mismatch("the chain kernel disagrees with the plain chain")
     log(f"chains: {stats.k['qblockchain']['checks']} checks, max |err| "
         f"{stats.k['qblockchain']['max_abs_err']}")
     return plain_envs
 
 
-def phase_main(engines, cpu_engine, images, plain_envs, expected, same_as=None):
+def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as=None):
     """A path through Engine.run: launch counts per forward must equal
     ``expected``; returns (launches per b64 forward, summary, logits by
     batch). At batch 1 every node and the logits must also equal the
@@ -537,19 +659,22 @@ def phase_main(engines, cpu_engine, images, plain_envs, expected, same_as=None):
         logits = eng.run(image=images[b])
         counts = kernels.launch_counts()
         if counts != expected:
-            raise RuntimeError(f"b{b}: launches per forward {counts}, expected {expected}")
+            raise RuntimeError(f"{label} b{b}: launches per forward {counts}, "
+                               f"expected {expected}")
         if b == 64:
             launches = counts
         all_logits[b] = logits
-        if tuple(logits.shape) != (b, 1000) or not bool(torch.isfinite(logits).all()):
-            raise RuntimeError(f"b{b}: logits {tuple(logits.shape)} not finite (B, 1000)")
+        if (tuple(logits.shape) != (len(images[b]), 1000)
+                or not bool(torch.isfinite(logits).all())):
+            raise RuntimeError(f"{label} b{b}: logits {tuple(logits.shape)} "
+                               "not finite (B, 1000)")
         if same_as is not None and not torch.equal(logits, same_as[b]):
-            raise RuntimeError(f"b{b}: logits differ from the default Engine's")
+            raise RuntimeError(f"{label} b{b}: logits differ from the default Engine's")
         _, env = execute(eng.graph, intermediates=True)(eng.params, image=images[b])
         differ = [n.name for n in eng.graph.nodes
                   if not torch.equal(env[n.name], plain_envs[b][n.name])]
         if differ or not torch.equal(logits, plain_envs[b][eng.graph.outputs[0]]):
-            raise RuntimeError(f"b{b}: nodes differ from the plain path: {differ[:5]}")
+            raise RuntimeError(f"{label} b{b}: nodes differ from the plain path: {differ[:5]}")
         if b == 1:
             t = time.time()
             cpu_logits, cpu_env = execute(cpu_engine.graph, intermediates=True)(
@@ -557,8 +682,9 @@ def phase_main(engines, cpu_engine, images, plain_envs, expected, same_as=None):
             differ = [n.name for n in eng.graph.nodes
                       if not torch.equal(env[n.name].cpu(), cpu_env[n.name])]
             if differ or not torch.equal(logits.cpu(), cpu_logits):
-                raise RuntimeError(f"b1: nodes differ from the Engine on the CPU: {differ[:5]}")
-            log(f"main b1: {len(eng.graph.nodes)} nodes equal the Engine on the CPU "
+                raise RuntimeError(f"{label} b1: nodes differ from the Engine on the CPU: "
+                                   f"{differ[:5]}")
+            log(f"{label} b1: {len(eng.graph.nodes)} nodes equal the Engine on the CPU "
                 f"({time.time() - t:.1f} s on the CPU)")
         bench = eng.benchmark(iters=20 if b == 64 else 100, reps=3, image=images[b])
         summary[f"b{b}"] = {"img_per_s": bench["throughput_per_s"],
@@ -566,25 +692,55 @@ def phase_main(engines, cpu_engine, images, plain_envs, expected, same_as=None):
                             "per_rep_ms": [t * 1e3 for t in bench["per_rep_s"]],
                             "nodes_checked": len(eng.graph.nodes),
                             "logits_absmax": float(logits.abs().max())}
-        log(f"main b{b}: {counts}, {len(eng.graph.nodes)} nodes equal the plain path, "
+        log(f"{label} b{b}: {counts}, {len(eng.graph.nodes)} nodes equal the plain path, "
             f"{bench['throughput_per_s']:.1f} img/s, {bench['latency_s'] * 1e3:.3f} ms/forward")
     return launches, summary, all_logits
+
+
+def phase_zoo(name, images, stats):
+    """Phases 8 and 9: the model's artifact and Engines, default and with
+    merge_1x1=True; every conv and dense node of both graphs against its
+    plain version (untimed: the kernels line times them on ResNet-50's
+    path); GoogLeNet's qlrn nodes (phase_qlrn); both Engines through
+    phase_main, the merged logits equal to the default's bit for bit.
+    Returns (launches per b64 forward of the default Engine, summary)."""
+    engines, cpu_engines = phase_artifact(name, "merge_1x1")
+    envs = phase_kernels(engines[False], images, stats, timed=False)
+    if any(n.op == "qlrn" for n in engines[False][64].graph.nodes):
+        phase_qlrn(engines[False], envs, stats)
+    launches, summary, logits = phase_main(name, engines[False], cpu_engines[False], images,
+                                           envs, ZOO_LAUNCHES[name][False])
+    merged_envs = phase_kernels(engines[True], images, stats, timed=False)
+    _, summary["merge_1x1"], _ = phase_main(f"{name} merge_1x1", engines[True],
+                                            cpu_engines[True], images, merged_envs,
+                                            ZOO_LAUNCHES[name][True], same_as=logits)
+    log(f"{name}: kernels " + ", ".join(f"{k} {v['checks']} checks" for k, v in stats.k.items()))
+    return launches, summary
 
 
 def main() -> int:
     smi = phase_card()
     phase_build()
-    engines, cpu_engines = phase_artifact()
+    engines, cpu_engines = phase_artifact("resnet50", "block_fusion", depths=(3, 4, 6, 3))
     rng = np.random.default_rng(0)
     images = {b: torch.as_tensor(rng.standard_normal(
         (b, 224, 224, 3), dtype=np.float32)).cuda() for b in (64, 1)}
-    stats, plain_envs = phase_kernels(engines[False], images)
-    launches, summary, logits = phase_main(engines[False], cpu_engines[False], images,
-                                           plain_envs, EXPECTED_LAUNCHES)
+    stats = KernelStats()
+    plain_envs = phase_kernels(engines[False], images, stats, timed=True)
+    phase_ragged_kernels(stats, images[1].device)
+    launches, summary, logits = phase_main("resnet50", engines[False], cpu_engines[False],
+                                           images, plain_envs, EXPECTED_LAUNCHES)
     fused_envs = phase_chains(engines[True], images, stats)
     fused_launches, summary["block_fusion"], _ = phase_main(
-        engines[True], cpu_engines[True], images, fused_envs, FUSED_LAUNCHES, same_as=logits)
+        "resnet50 block_fusion", engines[True], cpu_engines[True], images, fused_envs,
+        FUSED_LAUNCHES, same_as=logits)
+    del engines, cpu_engines, plain_envs, fused_envs
     launches["qblockchain"] = fused_launches["qblockchain"]
+    zoo = {}
+    for name in ZOO_LAUNCHES:
+        zoo_launches, zoo[name] = phase_zoo(name, images, stats)
+        if name == "googlenet":
+            launches["qlrn"] = zoo_launches["qlrn"]
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         s = stats.k[name]
@@ -596,7 +752,7 @@ def main() -> int:
             "library_ms": s["library_ms"]})
     log(json.dumps({"checks": {k: v["checks"] for k, v in stats.k.items()},
                     "per_shape_b64": stats.rows}))
-    print(json.dumps({"main_path": summary, "card": smi}))
+    print(json.dumps({"main_path": summary, **zoo, "card": smi}))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from tf2_tpu_torch import kernels
-from tf2_tpu_torch.kernels import qblocks, qconv, shift_matmul
+from tf2_tpu_torch.kernels import qblocks, qconv, qlrn, shift_matmul
 from tf2_tpu_torch.transform import potq
 
 
@@ -112,7 +112,8 @@ def test_engine_every_node_equals_plain(cuda):
     kernels.reset_launch_counts()
     logits = eng.run(image=x)
     assert kernels.launch_counts() == {"qmatmul_pot4": 9, "qmatmul_int8": 1,
-                                       "qconv_s1": 1, "qconv_s2": 7, "qblockchain": 0}
+                                       "qconv_s1": 1, "qconv_s2": 7, "qblockchain": 0,
+                                       "qlrn": 0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
@@ -199,7 +200,8 @@ def test_block_fused_engine_every_node_equals_plain(cuda):
     kernels.reset_launch_counts()
     logits = eng.run(image=x)
     assert kernels.launch_counts() == {"qmatmul_pot4": 6, "qmatmul_int8": 1,
-                                       "qconv_s1": 0, "qconv_s2": 7, "qblockchain": 4}
+                                       "qconv_s1": 0, "qconv_s2": 7, "qblockchain": 4,
+                                       "qlrn": 0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
@@ -208,3 +210,77 @@ def test_block_fused_engine_every_node_equals_plain(cuda):
     cpu = Engine(art.graph, art.params, device="cpu", block_fusion=True).run(image=x)
     assert torch.equal(logits.cpu(), cpu)
     assert torch.equal(logits, Engine(art.graph, art.params).run(image=x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(3137, 64), (1001, 192), (777, 13), (1, 192), (5, 3)])
+@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("s_in,s_out,alpha", [(0.0312, 0.0279, 2e-4), (0.5, 0.37, 1e-4),
+                                               (0.2, 0.05, 1e-3)])
+def test_qlrn_kernel_matches_plain(cuda, m, c, radius, s_in, s_out, alpha):
+    """Odd pixel counts (runs that end inside a block), C = 13 (16-byte
+    words that straddle pixels), C < 2r + 1, one pixel; +-127 in every
+    tenth row."""
+    rng = np.random.default_rng(m + c + radius)
+    x = rng.integers(-127, 128, (m, c), dtype=np.int8)
+    x[::10] = rng.choice(np.array([-127, 127], np.int8), size=x[::10].shape)
+    x = torch.as_tensor(x).to(cuda)
+    kw = dict(radius=radius, alpha=alpha, beta=0.75, bias=1.0, s_in=s_in, s_out=s_out)
+    before = kernels.launch_counts()["qlrn"]
+    got = qlrn.qlrn(x, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["qlrn"] == before + 1
+    want = qlrn.qlrn_plain(x, **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), qlrn.qlrn_plain(x.cpu(), **kw))
+
+
+@pytest.mark.cuda
+def test_qlrn_kernel_on_a_view_offset_in_memory(cuda):
+    """A run whose start is not 16-byte aligned in memory."""
+    base = torch.as_tensor(np.random.default_rng(0).integers(
+        -127, 128, 64 * 61 + 7, dtype=np.int8)).to(cuda)
+    x = base[7:].view(61, 64)
+    kw = dict(radius=2, alpha=2e-4, beta=0.75, bias=1.0, s_in=0.0312, s_out=0.0279)
+    assert torch.equal(qlrn.qlrn(x, **kw), qlrn.qlrn_plain(x, **kw))
+
+
+@pytest.mark.cuda
+def test_qlrn_kernel_refuses_other_beta(cuda):
+    x = torch.zeros((4, 8, 8, 96), dtype=torch.int8, device=cuda)
+    with pytest.raises(NotImplementedError, match="beta"):
+        qlrn.qlrn(x, radius=1, alpha=2e-4, beta=0.5, bias=1.0, s_in=0.03, s_out=0.03)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,image,launches", [
+    ("googlenet", 64, {"qmatmul_pot4": 37, "qmatmul_int8": 1, "qconv_s1": 19,
+                       "qconv_s2": 1, "qblockchain": 0, "qlrn": 2}),
+    ("squeezenet_v1_1", 96, {"qmatmul_pot4": 16, "qmatmul_int8": 1, "qconv_s1": 8,
+                             "qconv_s2": 1, "qblockchain": 0, "qlrn": 0}),
+])
+def test_zoo_engines_every_node_equals_plain(cuda, name, image, launches):
+    """GoogLeNet and SqueezeNet at batch 2 on the card, merge_1x1 off and
+    on: launch counts per forward, every node equal to the plain path,
+    logits equal to the Engine on the CPU and to each other."""
+    from tf2_tpu_torch.graph import execute
+    from tf2_tpu_torch.models import synthetic_quantized
+    from tf2_tpu_torch.runtime import Engine
+
+    art = synthetic_quantized(name, seed=0, batch=2, image=image, classes=64)
+    x = np.random.default_rng(0).standard_normal((2, image, image, 3)).astype(np.float32)
+    xt = torch.as_tensor(x).to(cuda)
+    logits = {}
+    for merge in (False, True):
+        eng = Engine(art.graph, art.params, merge_1x1=merge)
+        kernels.reset_launch_counts()
+        logits[merge] = eng.run(image=x)
+        if not merge:
+            assert kernels.launch_counts() == launches
+        _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
+        _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
+        for n in eng.graph.nodes:
+            assert torch.equal(env[n.name], plain[n.name]), n.name
+        cpu = Engine(art.graph, art.params, device="cpu", merge_1x1=merge).run(image=x)
+        assert torch.equal(logits[merge].cpu(), cpu)
+    assert torch.equal(logits[True], logits[False])

@@ -12,7 +12,7 @@ from typing import Callable, Mapping
 import torch
 import torch.nn.functional as F
 
-from ..kernels import qconv
+from ..kernels import qconv, qlrn
 from .ir import Graph, Node
 
 Params = Mapping[str, torch.Tensor]
@@ -85,3 +85,35 @@ def _global_avgpool(node, params, x):
     mean in the last bit."""
     n = torch.full((), x.shape[1] * x.shape[2], dtype=torch.float64, device=x.device)
     return (x.to(torch.float64).sum(dim=(1, 2)) / n).to(torch.float32).to(x.dtype)
+
+
+@register_op("lrn")
+def _lrn(node, params, x):
+    """f32 LRN across channels, by the steps of the plain ``qlrn``: float64
+    window sum, ``1 / sqrt``."""
+    return qlrn.lrn_f32(x.to(torch.float32), radius=node.attrs.get("radius", 2),
+                        alpha=node.attrs.get("alpha", 1e-4),
+                        beta=node.attrs.get("beta", 0.75),
+                        bias=node.attrs.get("bias", 1.0)).to(x.dtype)
+
+
+@register_op("concat")
+def _concat(node, params, *xs):
+    return torch.cat(xs, dim=node.attrs.get("axis", -1))
+
+
+@register_op("slice_c")
+def _slice_c(node, params, x):
+    """A channel slice, copied: the kernels downstream take only
+    contiguous tensors."""
+    return x[..., node.attrs["lo"]:node.attrs["hi"]].contiguous()
+
+
+@register_op("dropout")
+def _dropout(node, params, x):
+    return x  # inference: dropout is the identity
+
+
+@register_op("identity")
+def _identity(node, params, x):
+    return x

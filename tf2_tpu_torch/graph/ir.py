@@ -289,6 +289,17 @@ class GraphBuilder:
     def global_avgpool(self, x: str, name: str | None = None) -> str:
         return self.raw("global_avgpool", [x], name=name)
 
+    def lrn(self, x: str, radius: int = 2, alpha: float = 1e-4,
+            beta: float = 0.75, bias: float = 1.0, name: str | None = None) -> str:
+        return self.raw("lrn", [x], name=name, radius=radius, alpha=alpha,
+                        beta=beta, bias=bias)
+
+    def concat(self, xs: Iterable[str], axis: int = -1, name: str | None = None) -> str:
+        return self.raw("concat", list(xs), name=name, axis=axis)
+
+    def dropout(self, x: str, rate: float = 0.5, name: str | None = None) -> str:
+        return self.raw("dropout", [x], name=name, rate=rate)
+
     def build(self, outputs: Iterable[str] | str, **meta) -> Graph:
         outs = (outputs,) if isinstance(outputs, str) else tuple(outputs)
         g = Graph(self.name, dict(self._inputs), outs, list(self._nodes),

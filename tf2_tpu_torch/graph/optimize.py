@@ -1,9 +1,14 @@
-"""Load-time graph passes. The port has ``fuse_stem_quantize`` and
-``fuse_bottleneck_chains``; the other passes of ``tf2_tpu.graph.optimize``
-come with later slices."""
+"""Load-time graph passes. The port has ``fuse_stem_quantize``,
+``fuse_lrn_quantize``, ``merge_sibling_1x1`` and ``fuse_bottleneck_chains``;
+the other passes of ``tf2_tpu.graph.optimize`` come with later slices.
+Each emits the graph the reference's pass emits for the same input."""
 from __future__ import annotations
 
-from .ir import Graph, Node
+from collections import defaultdict
+
+import numpy as np
+
+from .ir import Graph, Node, TensorSpec
 from .shapes import activation_shapes
 
 
@@ -41,6 +46,165 @@ def fuse_stem_quantize(graph: Graph, params) -> tuple[Graph, dict]:
               dict(graph.params), dict(graph.meta))
     g.validate()
     return g, dict(params)
+
+
+# ops between an lrn and its quantize that commute with the quantize: each
+# is monotone or a permutation, as round and clip are monotone
+_COMMUTING = {"maxpool", "reshape", "flatten", "identity", "dropout", "transpose", "pad"}
+
+
+def fuse_lrn_quantize(graph: Graph, params) -> tuple[Graph, dict]:
+    """Fold dequantize -> lrn -> (commuting ops) -> quantize into a ``qlrn``
+    node (int8 in, int8 out), followed by the commuting ops on int8.
+
+    Applies when the dequantize, the lrn and each op of the chain have one
+    consumer and none is a graph output. The qlrn takes the quantize's
+    name, or ``<lrn>__qlrn`` when a chain follows it (the chain's last op
+    then takes the quantize's name). A SAME maxpool window made only of
+    padding would give -127 unfused and -128 fused; no pool of the zoo has
+    one.
+    """
+    consumers = graph.consumers()
+    outputs = set(graph.outputs)
+    rewrites: dict[str, tuple] = {}  # quantize name -> (dq, lrn, chain, q)
+    dead: set[str] = set()
+    for dq in graph.nodes:
+        if dq.op != "dequantize" or dq.name in outputs:
+            continue
+        cons = consumers.get(dq.name, [])
+        if len(cons) != 1 or cons[0].op != "lrn" or cons[0].name in outputs:
+            continue
+        lrn = cons[0]
+        chain: list[Node] = []
+        cur, q = lrn, None
+        while True:
+            nxt = consumers.get(cur.name, [])
+            if len(nxt) != 1 or cur.name in outputs:
+                break
+            if nxt[0].op == "quantize":
+                q = nxt[0]
+                break
+            if nxt[0].op not in _COMMUTING:
+                break
+            cur = nxt[0]
+            chain.append(cur)
+        if q is None:
+            continue
+        rewrites[q.name] = (dq, lrn, chain, q)
+        dead.update((dq.name, lrn.name))
+        dead.update(n.name for n in chain)
+    if not rewrites:
+        return graph, dict(params)
+
+    new_nodes: list[Node] = []
+    for n in graph.nodes:
+        if n.name in dead:
+            continue
+        if n.name not in rewrites:
+            new_nodes.append(n)
+            continue
+        dq, lrn, chain, q = rewrites[n.name]
+        attrs = {"radius": lrn.attrs.get("radius", 2), "alpha": lrn.attrs.get("alpha", 1e-4),
+                 "beta": lrn.attrs.get("beta", 0.75), "bias": lrn.attrs.get("bias", 1.0),
+                 "s_in": float(dq.attrs["scale"]), "s_out": float(q.attrs["scale"])}
+        prev = f"{lrn.name}__qlrn" if chain else q.name
+        new_nodes.append(Node(prev, "qlrn", (dq.inputs[0],), (), attrs))
+        for i, p in enumerate(chain):
+            name = q.name if i == len(chain) - 1 else p.name
+            new_nodes.append(Node(name, p.op, (prev,), p.params, dict(p.attrs)))
+            prev = name
+    g = Graph(graph.name, dict(graph.inputs), graph.outputs, new_nodes,
+              dict(graph.params), dict(graph.meta))
+    g.validate()
+    return g, dict(params)
+
+
+MIXED_MERGE_MIN_H = 20  # the reference's gate for padding 1x1s into a 3x3
+
+
+def merge_sibling_1x1(graph: Graph, params) -> tuple[Graph, dict]:
+    """Merge the int8 qconv2d siblings that read one input with the same
+    relu into one wide conv plus ``slice_c`` nodes (GoogLeNet's inception
+    heads: the 1x1, 3x3-reduce and 5x5-reduce convs).
+
+    Exact: each output channel keeps its own weights, es and eb. Two or
+    more 1x1s merge into a 1x1; 1x1s beside a 3x3 SAME merge into a 3x3
+    (the 1x1 weights zero-padded to 3x3, exact under SAME padding: SqueezeNet's
+    fire expands) when the input is at least ``MIXED_MERGE_MIN_H`` rows
+    high. The merged node is ``<input>__m1x1`` with params ``.wq``, ``.es``,
+    ``.eb``; each sibling becomes a ``slice_c`` of its channels under its own
+    name. Matches int8 stride-1 ungrouped convs without a fused input
+    quantize. Two relu groups on one input would both take the name
+    ``<input>__m1x1`` and fail validation, as the reference's pass does.
+    """
+    shapes = activation_shapes(graph, params)
+    groups: dict[tuple, list[Node]] = defaultdict(list)
+    for n in graph.nodes:
+        k = tuple(n.attrs["kshape"][:2]) if n.op == "qconv2d" else None
+        if (k in ((1, 1), (3, 3)) and n.attrs.get("wfmt") == "int8"
+                and tuple(n.attrs.get("strides", [1, 1])) == (1, 1)
+                and n.attrs.get("groups", 1) == 1 and "s_in" not in n.attrs
+                and (k == (1, 1) or n.attrs.get("padding", "SAME") == "SAME")):
+            groups[(n.inputs[0], bool(n.attrs.get("relu")))].append(n)
+
+    merges: dict[tuple, tuple[list[Node], int]] = {}
+    for key, sibs in groups.items():
+        ones = [s for s in sibs if tuple(s.attrs["kshape"][:2]) == (1, 1)]
+        threes = [s for s in sibs if tuple(s.attrs["kshape"][:2]) == (3, 3)]
+        if ones and threes and shapes[key[0]][1] >= MIXED_MERGE_MIN_H:
+            merges[key] = (ones + threes, 3)
+        elif len(ones) >= 2:
+            merges[key] = (ones, 1)
+    if not merges:
+        return graph, dict(params)
+
+    new_params = dict(params)
+    new_specs = dict(graph.params)
+    replaced: dict[str, tuple[str, int, int]] = {}  # sibling -> (merged, lo, hi)
+    merged_nodes: dict[str, Node] = {}  # first sibling -> merged node
+    for (src, relu), (sibs, km) in merges.items():
+        mname = f"{src}__m1x1"
+        ws, ess, ebs, lo = [], [], [], 0
+        for s in sibs:
+            kh, kw, cin, cout = s.attrs["kshape"]
+            w = np.asarray(new_params[s.params[0]]).reshape(kh, kw, cin, cout)
+            if kh != km:
+                p = (km - kh) // 2
+                w = np.pad(w, ((p, p), (p, p), (0, 0), (0, 0)))
+            ws.append(w)
+            ess.append(np.asarray(new_params[s.params[1]]))
+            ebs.append(np.asarray(new_params[s.params[2]]))
+            replaced[s.name] = (mname, lo, lo + cout)
+            lo += cout
+        pn = (f"{mname}.wq", f"{mname}.es", f"{mname}.eb")
+        new_params[pn[0]] = np.concatenate(ws, axis=3).astype(np.int8)
+        new_params[pn[1]] = np.concatenate(ess).astype(np.float32)
+        new_params[pn[2]] = np.concatenate(ebs).astype(np.float32)
+        for nm in pn:
+            new_specs[nm] = TensorSpec(new_params[nm].shape, str(new_params[nm].dtype))
+        for s in sibs:
+            for old in s.params:
+                new_params.pop(old, None)
+                new_specs.pop(old, None)
+        first = sibs[0]
+        attrs = {"relu": relu, "wfmt": "int8", "in_scale": first.attrs.get("in_scale"),
+                 "out_scales": [s.attrs.get("out_scale") for s in sibs],
+                 "strides": [1, 1], "padding": "SAME", "groups": 1,
+                 "kshape": [km, km, ws[0].shape[2], lo]}
+        merged_nodes[first.name] = Node(mname, "qconv2d", (src,), pn, attrs)
+    new_nodes: list[Node] = []
+    for n in graph.nodes:
+        if n.name not in replaced:
+            new_nodes.append(n)
+            continue
+        if n.name in merged_nodes:
+            new_nodes.append(merged_nodes[n.name])
+        mname, lo, hi = replaced[n.name]
+        new_nodes.append(Node(n.name, "slice_c", (mname,), (), {"lo": lo, "hi": hi}))
+    g = Graph(graph.name, dict(graph.inputs), graph.outputs, new_nodes,
+              new_specs, dict(graph.meta))
+    g.validate()
+    return g, new_params
 
 
 def _is_qconv(n: Node | None, k: int, relu: bool) -> bool:

@@ -33,6 +33,16 @@ def _qblockchain(node, params, x, plain=False):
     return dispatch.qblockchain(node, params, x, plain=plain)
 
 
+@register_op("qlrn", kernel=True)
+def _qlrn(node, params, x, plain=False):
+    return dispatch.qlrn(node, params, x, plain=plain)
+
+
+@register_op("qconcat")
+def _qconcat(node, params, *xs):
+    return dispatch.qconcat(node, params, *xs)
+
+
 @register_op("qadd")
 def _qadd(node, params, a, b):
     return dispatch.qadd(node, params, a, b)

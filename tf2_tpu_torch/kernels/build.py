@@ -9,6 +9,7 @@ unchanged one is reused.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,7 +20,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("shift_matmul.cu", "qconv.cu", "qblocks.cu")
+SOURCES = ("shift_matmul.cu", "qconv.cu", "qblocks.cu", "qlrn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -75,6 +76,14 @@ def library(source: str) -> ctypes.CDLL:
     if source not in _LIBS:
         _LIBS[source] = ctypes.CDLL(str(build_all()[source]))
     return _LIBS[source]
+
+
+@functools.lru_cache(maxsize=256)
+def scalar(value: float, device: torch.device) -> torch.Tensor:
+    """``value`` as a 0-dim f32 tensor on ``device``. Dividing by it is a
+    true division on the card too: CUDA divides by a host scalar as a
+    multiplication by its reciprocal, which rounds differently."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
 
 
 def check_operands(device: torch.device, **tensors: tuple[torch.Tensor, torch.dtype, tuple]):

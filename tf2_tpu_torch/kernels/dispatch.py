@@ -3,23 +3,15 @@ dense layer goes through one of the CUDA kernels (or, with ``plain=True``
 or on the CPU, through that kernel's plain version)."""
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from . import qblocks, qconv, shift_matmul
-
-
-@functools.lru_cache(maxsize=256)
-def _scalar(value: float, device: torch.device) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=device)
+from . import build, qblocks, qconv, qlrn as qlrn_kernel, shift_matmul
 
 
 def quantize(x: torch.Tensor, scale: float) -> torch.Tensor:
     """f32 -> int8: clip(round(x / scale), +-127). The divisor is a tensor
-    on x's device: CUDA divides by a host scalar as a multiplication by its
-    reciprocal, which rounds differently from a true division."""
-    y = torch.round(x.to(torch.float32) / _scalar(float(scale), x.device))
+    on x's device (``build.scalar``): a true division on the card too."""
+    y = torch.round(x.to(torch.float32) / build.scalar(float(scale), x.device))
     return torch.clamp(y, -127, 127).to(torch.int8)
 
 
@@ -69,6 +61,29 @@ def qblockchain(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.T
         blk["relu"] = battrs["relu"]
         blocks.append(blk)
     return qblocks.fused_qblockchain(x_q, blocks, plain)
+
+
+def qlrn(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """The fused int8 LRN (kernels/qlrn.py)."""
+    return qlrn_kernel.fused_qlrn(
+        x_q, radius=node.attrs.get("radius", 2), alpha=node.attrs.get("alpha", 1e-4),
+        beta=node.attrs.get("beta", 0.75), bias=node.attrs.get("bias", 1.0),
+        s_in=node.attrs["s_in"], s_out=node.attrs["s_out"], plain=plain)
+
+
+def qconcat(node, params, *xs: torch.Tensor) -> torch.Tensor:
+    """int8 concat: an input on the output's scale is copied as it is; any
+    other is requantized by si/so, a double division on the host used as
+    an f32 (as qadd's ratios), never an f32 division on the device."""
+    so = node.attrs["out_scale"]
+    outs = []
+    for x, si in zip(xs, node.attrs["in_scales"]):
+        if abs(si - so) < 1e-12:
+            outs.append(x)
+        else:
+            y = torch.round(x.to(torch.float32) * (si / so))
+            outs.append(torch.clamp(y, -127, 127).to(torch.int8))
+    return torch.cat(outs, dim=node.attrs.get("axis", -1))
 
 
 def qadd(node, params, a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:

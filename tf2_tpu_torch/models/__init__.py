@@ -1,12 +1,13 @@
-"""Model zoo of the port: IR graph builders by name. This slice has
-ResNet-50; the other families of ``tf2_tpu.models`` come with later
-slices."""
+"""Model zoo of the port: IR graph builders by name. The port has the CNNs
+(ResNet-50, GoogLeNet, SqueezeNet v1.1); SSD and ViT of ``tf2_tpu.models``
+come with later slices."""
 from __future__ import annotations
 
 from ..graph.ir import Graph
-from . import resnet
+from . import googlenet, resnet, squeezenet
 
-_REGISTRY = {"resnet50": resnet.build}
+_REGISTRY = {"resnet50": resnet.build, "googlenet": googlenet.build,
+             "squeezenet_v1_1": squeezenet.build}
 
 
 def get_model(name: str, **kwargs) -> Graph:

@@ -1,6 +1,6 @@
 """Runtime Engine: loads a quantized graph and its params onto a device,
 applies the load-time passes and runs the graph eagerly, layer by layer,
-each conv and dense layer in one of the CUDA kernels."""
+each conv and dense layer and each LRN in one of the CUDA kernels."""
 from __future__ import annotations
 
 from typing import Mapping
@@ -10,7 +10,8 @@ import torch
 
 from ..graph.execute import execute
 from ..graph.ir import Graph, Node, TensorSpec
-from ..graph.optimize import fuse_bottleneck_chains, fuse_stem_quantize
+from ..graph.optimize import (fuse_bottleneck_chains, fuse_lrn_quantize,
+                              fuse_stem_quantize, merge_sibling_1x1)
 from ..kernels.qconv import covers
 from ..transform import potq
 
@@ -59,17 +60,29 @@ def _predecode_fallback_weights(graph: Graph, params):
     return _decode_pot4(graph, params, names)
 
 
-def _fuse_chains(graph: Graph, params):
-    """``fuse_bottleneck_chains`` on the port's graph. The pass matches
-    int8 convs only, and predecode keeps every conv the kernels take as
-    pot4, so first decode exactly the convs that end up in a chain: those
-    the pass fuses when every pot4 conv is decoded. The others keep their
-    packed codes."""
+def _on_int8(graph: Graph, params, rewrite, taken):
+    """A pass that matches int8 convs only, on the port's graph, where
+    predecode keeps every conv the kernels take as pot4: first decode
+    exactly the convs the pass takes when every pot4 conv is decoded
+    (``taken(trial graph)`` names them), then run it. The other convs keep
+    their packed codes."""
     pot4 = {n.name for n in graph.nodes
             if n.op == "qconv2d" and n.attrs.get("wfmt") == "pot4"}
-    trial, _ = fuse_bottleneck_chains(*_decode_pot4(graph, params, pot4))
-    graph, params = _decode_pot4(graph, params, pot4 - {n.name for n in trial.nodes})
-    return fuse_bottleneck_chains(graph, params)
+    trial, _ = rewrite(*_decode_pot4(graph, params, pot4))
+    return rewrite(*_decode_pot4(graph, params, pot4 & taken(trial)))
+
+
+def _merge_1x1(graph: Graph, params):
+    """``merge_sibling_1x1``: a merged sibling becomes a ``slice_c``."""
+    return _on_int8(graph, params, merge_sibling_1x1,
+                    lambda g: {n.name for n in g.nodes if n.op == "slice_c"})
+
+
+def _fuse_chains(graph: Graph, params):
+    """``fuse_bottleneck_chains``: a conv in a chain leaves the graph."""
+    names = {n.name for n in graph.nodes}
+    return _on_int8(graph, params, fuse_bottleneck_chains,
+                    lambda g: names - {n.name for n in g.nodes})
 
 
 def _resolve_device(device: str | torch.device) -> torch.device:
@@ -87,17 +100,27 @@ class Engine:
     >>> eng = Engine(graph, params)            # on cuda
     >>> logits = eng.run(image=batch)          # NHWC f32 in, logits out
 
-    ``block_fusion=True`` rewrites runs of stride-1 bottleneck blocks into
-    ``qblockchain`` nodes, each run by the chain kernel (``kernels/
-    qblocks.py``) with int8 weights. Off by default, as in the reference.
+    The load passes: predecode, ``fuse_stem_quantize``, ``fuse_lrn_quantize``,
+    then the optional ones. ``merge_1x1=True`` merges sibling int8 convs on
+    one input into one wide conv and channel slices (``graph/optimize.
+    merge_sibling_1x1``; the merged convs get int8 weights); off by default
+    until a measurement on the card decides it (the reference turns it on
+    because of a TPU measurement). ``block_fusion=True`` rewrites runs of
+    stride-1 bottleneck blocks into ``qblockchain`` nodes, each run by the
+    chain kernel (``kernels/qblocks.py``) with int8 weights. Off by
+    default, as in the reference.
     """
 
     def __init__(self, graph: Graph, params: Mapping[str, np.ndarray],
-                 device: str | torch.device = "cuda", block_fusion: bool = False):
+                 device: str | torch.device = "cuda", block_fusion: bool = False,
+                 merge_1x1: bool = False):
         self.device = _resolve_device(device)
         graph.validate()
         graph, params = _predecode_fallback_weights(graph, params)
         graph, params = fuse_stem_quantize(graph, params)
+        graph, params = fuse_lrn_quantize(graph, params)
+        if merge_1x1:
+            graph, params = _merge_1x1(graph, params)
         if block_fusion:
             graph, params = _fuse_chains(graph, params)
         self.graph = graph

@@ -1,18 +1,20 @@
 """Where an Engine forward spends its time on the card, from a
 torch.profiler trace.
 
-    python -m tf2_tpu_torch.runtime.profile [--trace-dir DIR]
+    python -m tf2_tpu_torch.runtime.profile [--model NAME] [--trace-dir DIR]
 
-Builds the synthetic W4-PoT ResNet-50 (224x224, 1000 classes), warms an
-Engine up at batch 64 and at batch 1, then profiles 5 back-to-back forwards
-of each; then the same for ``Engine(block_fusion=True)``. Prints one JSON
-line per engine and batch: device time per forward by kernel family (the
+Builds the model's synthetic W4-PoT artifact (224x224, 1000 classes;
+``--model`` is resnet50, the default, googlenet or squeezenet_v1_1), warms
+an Engine up at batch 64 and at batch 1, then profiles 5 back-to-back
+forwards of each; then the same with the model's Engine option on
+(``block_fusion=True`` for ResNet-50, ``merge_1x1=True`` for the others).
+Prints one JSON line per engine and batch: device time per forward by kernel family (the
 port's kernels by name, PyTorch's own kernels by short name) and by
 graph op (the executor's "<op>:<node>" ranges, where the trace has them on
 the device timeline), the host wall time per forward, and the device's
 idle share of that wall time (1 - union of kernel intervals / wall).
 With ``--trace-dir`` the Chrome traces are kept there as
-``profile_b<B>.json`` and ``profile_fused_b<B>.json``.
+``profile_<model>_b<B>.json`` and ``profile_<model>_<option>_b<B>.json``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from .. import kernels
 
 BATCHES = (64, 1)
 STEPS = 5
+OPTIONS = {"resnet50": "block_fusion", "googlenet": "merge_1x1",
+           "squeezenet_v1_1": "merge_1x1"}  # model -> the Engine option it profiles
 
 
 def kernel_family(name: str) -> str:
@@ -96,11 +100,13 @@ def main() -> None:
     from tf2_tpu_torch.runtime import Engine
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(OPTIONS), default="resnet50")
     ap.add_argument("--trace-dir", help="keep the Chrome traces here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
-    art = synthetic_quantized("resnet50", seed=0, batch=1, image=224, classes=1000)
+    option = OPTIONS[args.model]
+    art = synthetic_quantized(args.model, seed=0, batch=1, image=224, classes=1000)
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir = args.trace_dir or tmp
@@ -108,12 +114,12 @@ def main() -> None:
         images = {b: torch.as_tensor(rng.standard_normal((b, 224, 224, 3),
                                                          dtype=np.float32)).cuda()
                   for b in BATCHES}
-        for fused in (False, True):
+        for flag in (False, True):
             for b in BATCHES:
-                eng = Engine(art.graph.with_batch_size(b), art.params, block_fusion=fused)
-                name = f"profile_{'fused_' if fused else ''}b{b}.json"
+                eng = Engine(art.graph.with_batch_size(b), art.params, **{option: flag})
+                name = f"profile_{args.model}_{option + '_' if flag else ''}b{b}.json"
                 out = profile(eng, images[b], os.path.join(trace_dir, name))
-                print(json.dumps({"batch": b, "block_fusion": fused,
+                print(json.dumps({"model": args.model, "batch": b, option: flag,
                                   "device": torch.cuda.get_device_name(0), **out}))
 
 

@@ -9,13 +9,13 @@ precomputed requant vectors:
     y_q     = clip(round(acc_i32 * eff_scale_c + eff_bias_c))      # epilogue
     eff_scale_c = s_in * s_w_c / s_out ;  eff_bias_c = b_c / s_out
 
-Activations stay int8 through conv/pool/add chains; ops with no integer
-semantics run fp32 behind dequantize nodes.
+Activations stay int8 through conv/pool/add/concat/LRN chains; ops with
+no integer semantics run fp32 behind dequantize nodes.
 
-This slice ports the rewrites a CNN of the ResNet family needs. The
-rewrites ``tf2_tpu.transform.quantize`` applies to concat, LRN, attention
-and transformer ops, and the residual fold into a ``qdense`` epilogue,
-raise NotImplementedError here rather than produce a different graph.
+The port has the rewrites the CNNs need (conv, dense, add, concat, LRN).
+The rewrites ``tf2_tpu.transform.quantize`` applies to attention and
+transformer ops, and the residual fold into a ``qdense`` epilogue, raise
+NotImplementedError here rather than produce a different graph.
 """
 from __future__ import annotations
 
@@ -31,8 +31,8 @@ from . import potq
 _PASSTHROUGH = {"maxpool", "reshape", "flatten", "identity", "dropout",
                 "transpose", "pad", "take_token"}
 # ops that tf2_tpu quantizes with rewrites this package does not have yet
-_NOT_PORTED = {"concat", "attention_core", "lrn", "layer_norm", "gelu",
-               "bias_add", "prepend_token"}
+_NOT_PORTED = {"attention_core", "layer_norm", "gelu", "bias_add",
+               "prepend_token"}
 
 
 @dataclasses.dataclass
@@ -74,6 +74,17 @@ def quantize_graph(graph: Graph, params: Mapping[str, np.ndarray],
         if n.op in _NOT_PORTED:
             raise NotImplementedError(
                 f"quantizing op {n.op!r} (node {n.name!r}) is not ported")
+    # every single-consumer concat input goes on the concat's own scale
+    # (tf2_tpu's QuantSpec.equalize_concat, on by default there): the
+    # branch producer's epilogue then writes int8 on the concat's grid and
+    # the qconcat is a byte copy
+    act_scales = dict(act_scales)
+    for node in graph.nodes:
+        if node.op != "concat" or node.name not in act_scales:
+            continue
+        for i in node.inputs:
+            if i in act_scales and len(consumers.get(i, [])) == 1:
+                act_scales[i] = act_scales[node.name]
 
     # "first layer" = first conv/dense on any path from a graph input,
     # tracing through layout/passthrough ops
@@ -196,6 +207,32 @@ def quantize_graph(graph: Graph, params: Mapping[str, np.ndarray],
                                       {"sa": sa, "sb": sb, "so": s_out,
                                        "relu": has_relu}))
                 val[out_name] = (out_name, s_out)
+                continue
+
+        if node.op == "concat":
+            states = [val[i] for i in node.inputs]
+            if all(s is not None for _, s in states):
+                s_out = float(act_scales[node.name])
+                new_nodes.append(Node(node.name, "qconcat",
+                                      tuple(nv for nv, _ in states), (),
+                                      {"in_scales": [s for _, s in states],
+                                       "out_scale": s_out,
+                                       "axis": node.attrs.get("axis", -1)}))
+                val[node.name] = (node.name, s_out)
+                continue
+
+        if node.op == "lrn":
+            nv, s_in = val[node.inputs[0]]
+            if s_in is not None and node.name in act_scales:
+                # int8 in, int8 out in one pass (kernels/qlrn.py)
+                s_out = float(act_scales[node.name])
+                new_nodes.append(Node(node.name, "qlrn", (nv,), (), {
+                    "radius": node.attrs.get("radius", 2),
+                    "alpha": node.attrs.get("alpha", 1e-4),
+                    "beta": node.attrs.get("beta", 0.75),
+                    "bias": node.attrs.get("bias", 1.0),
+                    "s_in": s_in, "s_out": s_out}))
+                val[node.name] = (node.name, s_out)
                 continue
 
         if node.op in _PASSTHROUGH:
