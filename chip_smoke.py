@@ -20,7 +20,7 @@ Phases, in order; any failure exits non-zero before the last line:
              the GEMMs, bf16 F.conv2d for the convs) with CUDA events at
              the batch-64 shapes.
  5. main     Engine.run at batch 64 and 1 with launch counts per forward
-             (33 / 1 / 13 / 7 / 0 / 0), finite (B, 1000) logits, every node
+             (33 / 1 / 13 / 7 / 0 / 0 / 0), finite (B, 1000) logits, every node
              equal to the plain path on the card and, at batch 1, to the
              Engine on the CPU; Engine.benchmark img/s and latency.
  6. chains   Engine(block_fusion=True) at batch 64 and 1 from the same
@@ -30,7 +30,7 @@ Phases, in order; any failure exits non-zero before the last line:
              chain timed at batch 64 (kernel, plain, bound) and its kernel
              at batch 1.
  7. fused    Engine(block_fusion=True).run at batch 64 and 1: launch counts
-             per forward (6 / 1 / 0 / 7 / 4 / 0), every node equal to the
+             per forward (6 / 1 / 0 / 7 / 4 / 0 / 0), every node equal to the
              plain path and, at batch 1, to the fused Engine on the CPU;
              logits equal to phase 5's bit for bit; Engine.benchmark beside
              it.
@@ -41,26 +41,47 @@ Phases, in order; any failure exits non-zero before the last line:
              phase 4 (the 5x5 convs, cout 16-384, merged widths such as
              296); every qlrn node against qlrn_plain on its real input at
              both batches, at the same shapes on random and on +-127 inputs
-             under three (s_in, s_out, alpha) sets at radius 1 and 2, and
-             on ragged shapes (odd M, C = 13, C < 2r + 1, M = 1), all with
-             0 mismatches; qlrn timed at batch 64 (kernel, plain, bound,
-             F.local_response_norm as the yardstick). Then both Engines as
-             in phase 5: launch counts per forward (37 / 1 / 19 / 1 / 0 / 2
-             default, 10 / 10 / 19 / 1 / 0 / 2 merged), every node equal to
-             the plain path and at batch 1 to the CPU Engine, merged logits
+             under three (s_in, s_out, alpha) sets at radius 1 and 2 and
+             beta 0.75, 0.5, 0.6 and 1.0, and on ragged shapes (odd M,
+             C = 13, C < 2r + 1, M = 1), all with 0 mismatches; qlrn timed
+             at batch 64 (kernel, plain, bound, F.local_response_norm as
+             the yardstick). Then both Engines as in phase 5: launch counts
+             per forward (37 / 1 / 19 / 1 / 0 / 2 / 0 default,
+             10 / 10 / 19 / 1 / 0 / 2 / 0 merged), every node equal to the
+             plain path and at batch 1 to the CPU Engine, merged logits
              equal to the default's bit for bit, Engine.benchmark.
  9. squeezenet  the same for SqueezeNet v1.1, which has no LRN: launch
-             counts 16 / 1 / 8 / 1 / 0 / 0 default and 12 / 1 / 8 / 1 / 0 / 0
-             merged (fires 2-5 merge e1x1 into an int8 3x3).
+             counts 16 / 1 / 8 / 1 / 0 / 0 / 0 default and
+             12 / 1 / 8 / 1 / 0 / 0 / 0 merged (fires 2-5 merge e1x1 into an
+             int8 3x3).
+10. vit      full-width ViT-B/16 (224x224, 1000 classes, depth 12, dim 768,
+             12 heads) at W8 with the int8 residual stream, vit_b16 (T = 196)
+             then vit_b16_cls (T = 197): the artifact (the position
+             embedding, class token and layer-norm parameters drawn from a
+             seeded generator) round trip, Engines at batch 64 and 1 and on
+             the CPU at batch 1. Every qdense node, with and without the
+             folded residual, against its plain version as in phase 4 (its
+             GEMMs timed per shape at batch 64, outside the kernels line);
+             every qattention_core node against qattention_plain on its real
+             input at both batches, on random qkv under three (s_in, s_out)
+             pairs from flat to peaked softmax, on +-127 inputs, and on
+             ragged (N, T, heads, hd), all with 0 mismatches; qattention
+             timed at batch 64 (kernel, plain, bound,
+             F.scaled_dot_product_attention on the dequantized bf16 q, k, v
+             as the yardstick). Then both Engines as in phase 5: launch
+             counts 0 / 50 / 0 / 0 / 0 / 0 / 12 a forward, every node equal
+             to the plain path and at batch 1 to the CPU Engine, finite
+             (B, 1000) logits, Engine.benchmark.
 Launch counts are in the order (qmatmul_pot4, qmatmul_int8, qconv_s1,
-qconv_s2, qblockchain, qlrn). Prints the kernels JSON line (launches:
-qblockchain's from phase 7, qlrn's from phase 8, the others' from phase 5;
-times at ResNet-50's shapes, qlrn's at GoogLeNet's), the card line and,
-last, the contract line; the per-shape timings go to stderr as one JSON
-line.
+qconv_s2, qblockchain, qlrn, qattention). Prints the kernels JSON line
+(launches: qblockchain's from phase 7, qlrn's from phase 8, qattention's
+from phase 10, the others' from phase 5; times at ResNet-50's shapes,
+qlrn's at GoogLeNet's, qattention's at vit_b16's), the card line and, last,
+the contract line; the per-shape timings go to stderr as one JSON line.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -83,6 +104,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "qconv_s2": ("tf2_tpu_torch/kernels/csrc/qconv.cu", "tf2_tpu/kernels/qconv.py:166"),
     "qblockchain": ("tf2_tpu_torch/kernels/csrc/qblocks.cu", "tf2_tpu/kernels/qblocks.py:104"),
     "qlrn": ("tf2_tpu_torch/kernels/csrc/qlrn.cu", "tf2_tpu/kernels/qlrn.py:66"),
+    "qattention": ("tf2_tpu_torch/kernels/csrc/qattention.cu",
+                   "tf2_tpu/kernels/qattention.py:42"),
 }
 KERNEL_NAMES = tuple(KERNELS)
 
@@ -91,16 +114,23 @@ def _launches(*counts):
     return dict(zip(KERNEL_NAMES, counts))
 
 
-# launches a forward: (pot4 GEMM, int8 GEMM, conv s1, conv s2, chain, qlrn)
-EXPECTED_LAUNCHES = _launches(33, 1, 13, 7, 0, 0)
-FUSED_LAUNCHES = _launches(6, 1, 0, 7, 4, 0)
+# launches a forward: (pot4 GEMM, int8 GEMM, conv s1, conv s2, chain, qlrn,
+# attention)
+EXPECTED_LAUNCHES = _launches(33, 1, 13, 7, 0, 0, 0)
+FUSED_LAUNCHES = _launches(6, 1, 0, 7, 4, 0, 0)
 ZOO_LAUNCHES = {  # model -> {merge_1x1: launches}
-    "googlenet": {False: _launches(37, 1, 19, 1, 0, 2), True: _launches(10, 10, 19, 1, 0, 2)},
-    "squeezenet_v1_1": {False: _launches(16, 1, 8, 1, 0, 0), True: _launches(12, 1, 8, 1, 0, 0)},
+    "googlenet": {False: _launches(37, 1, 19, 1, 0, 2, 0),
+                  True: _launches(10, 10, 19, 1, 0, 2, 0)},
+    "squeezenet_v1_1": {False: _launches(16, 1, 8, 1, 0, 0, 0),
+                        True: _launches(12, 1, 8, 1, 0, 0, 0)},
 }
+VIT_LAUNCHES = _launches(0, 50, 0, 0, 0, 0, 12)
+# (s_in, s_out) for qattention on random qkv: the softmax from flat to peaked
+ATTN_SCALES = [(0.005, 0.01), (0.02, 0.05), (0.1, 0.05)]
 # (s_in, s_out, alpha) for qlrn on random inputs: the synthetic scales keep
 # t within 0.4% of 1; these move it across the epilogue's range
 QLRN_SCALES = [(0.0312, 0.0279, 2e-4), (0.5, 0.37, 1e-4), (0.2, 0.05, 1e-3)]
+QLRN_BETAS = (0.75, 0.5, 0.6, 1.0)  # the zoo's, then others (t^beta by exp and log)
 
 
 def log(msg: str) -> None:
@@ -179,9 +209,19 @@ def _conv_node(node):
     return Node(node.name, node.op, node.inputs, node.params, attrs)
 
 
+def _main_input(x_q):
+    """The tensor the kernel reads first: a residual qdense's input is the
+    pair (x, residual)."""
+    return x_q[0] if isinstance(x_q, tuple) else x_q
+
+
 def _call(node, params, x_q, plain=False):
     from tf2_tpu_torch.kernels import dispatch
 
+    if isinstance(x_q, tuple):
+        return dispatch.qdense(node, params, *x_q, plain=plain)
+    if node.op == "qattention_core":
+        return dispatch.qattention_core(node, params, x_q, plain=plain)
     if node.op == "qconv2d":
         return dispatch.qconv2d(_conv_node(node), params, x_q, plain=plain)
     if node.op == "qblockchain":
@@ -216,6 +256,8 @@ def _bound_ms(node, params, x_q, y) -> tuple[float, float]:
     for the function of the node on these inputs."""
     if node.op == "qlrn":
         return _qlrn_bound_ms(node, x_q)
+    if node.op == "qattention_core":
+        return _qattention_bound_ms(node, x_q)
     nbytes, ops = _work(node, params, x_q, y)
     return nbytes / H100_BYTES_PER_S * 1e3, ops / H100_INT8_OPS_PER_S * 1e3
 
@@ -231,6 +273,21 @@ def _qlrn_bound_ms(node, x_q) -> tuple[float, float]:
     window_adds = sum(min(ch + r, c - 1) - max(ch - r, 0) for ch in range(c))
     ops_ms = (11 * m * c / H100_F32_OPS_PER_S + m * window_adds / H100_F64_OPS_PER_S) * 1e3
     return 2 * m * c / H100_BYTES_PER_S * 1e3, ops_ms
+
+
+def _qattention_bound_ms(node, qkv) -> tuple[float, float]:
+    """qattention reads the int8 qkv once and writes the int8 output once.
+    Per head it does 2 * T * T * hd int8 multiply-adds (QK^T and PV, 2
+    operations each), and per score 6 f32 operations (the scale, the max,
+    the subtraction, the division, * 127, the round) and 2 in f64 (the exp,
+    counted as one, and the row sum's add)."""
+    n, t, three_dim = qkv.shape
+    heads, dim = node.attrs["heads"], node.attrs["dim"]
+    scores = n * heads * t * t
+    int8_ops = 2 * 2 * scores * (dim // heads)
+    ops_ms = (int8_ops / H100_INT8_OPS_PER_S + 6 * scores / H100_F32_OPS_PER_S
+              + 2 * scores / H100_F64_OPS_PER_S) * 1e3
+    return (qkv.numel() + n * t * dim) / H100_BYTES_PER_S * 1e3, ops_ms
 
 
 def _work(node, params, x_q, y) -> tuple[float, float]:
@@ -255,7 +312,8 @@ def _work(node, params, x_q, y) -> tuple[float, float]:
         x_bytes, macs = b * rows * cols * cin, b * taps_y * taps_x * cin * cout
     else:
         k, cout = node.attrs["kshape"]
-        x_bytes, macs = x_q.numel(), x_q.numel() * cout
+        xs = x_q if isinstance(x_q, tuple) else (x_q,)  # a residual is read once too
+        x_bytes, macs = sum(x.numel() for x in xs), xs[0].numel() * cout
     w_bytes = k * cout // 2 if node.attrs["wfmt"] == "pot4" else k * cout
     return x_bytes + w_bytes + 8 * cout + y.numel(), 2.0 * macs
 
@@ -284,8 +342,9 @@ def _library(node, params, x_q):
     only as a time: torch._int_mm for GEMMs, bf16 F.conv2d for convs,
     F.local_response_norm on the dequantized f32 tensor (its NCHW view,
     alpha times the window so that its alpha / n is the node's alpha) for
-    qlrn. No single PyTorch call computes a chain of bottleneck blocks:
-    None."""
+    qlrn, F.scaled_dot_product_attention on the dequantized bf16 q, k, v
+    (N, heads, T, hd) for qattention. No single PyTorch call computes a
+    chain of bottleneck blocks: None."""
     import torch.nn.functional as F
 
     from tf2_tpu_torch.kernels import qconv
@@ -293,6 +352,13 @@ def _library(node, params, x_q):
 
     if node.op == "qblockchain":
         return None
+    if node.op == "qattention_core":
+        n, t, _ = x_q.shape
+        heads, dim = node.attrs["heads"], node.attrs["dim"]
+        q, k, v = ((z.to(torch.float32) * node.attrs["s_in"]).to(torch.bfloat16)
+                   .reshape(n, t, heads, dim // heads).transpose(1, 2).contiguous()
+                   for z in torch.split(x_q, dim, dim=-1))
+        return lambda: F.scaled_dot_product_attention(q, k, v)
     if node.op == "qlrn":
         a = node.attrs
         size = 2 * a["radius"] + 1
@@ -313,7 +379,7 @@ def _library(node, params, x_q):
             return lambda: F.conv2d(xb, wb, stride=s, padding=kh // 2)
         x2, w2 = x_q.reshape(-1, cin), w.reshape(cin, cout)
     else:
-        x2 = x_q
+        x2 = _main_input(x_q).reshape(-1, node.attrs["kshape"][0])
         w2 = w if node.attrs["wfmt"] == "int8" else potq.pot_decode(
             potq.unpack_codes(w, node.attrs["kshape"][0]))
     return lambda: torch._int_mm(x2, w2)
@@ -323,8 +389,11 @@ def _adversarial(node, params, rng, x_q, extreme: bool):
     """+-127 inputs on weights of the largest magnitude (pot4 +-64, int8
     +-127). ``extreme``: every input +127 and every weight +max, the largest
     accumulator, with es placing it just inside the int8 range; otherwise
-    random signs with es large enough that outputs clip at both ends.
-    Returns (params, x)."""
+    random signs with es large enough that outputs clip at both ends. A
+    residual is +-127 at random signs either way. Returns (params, x)."""
+    if isinstance(x_q, tuple):
+        p, x = _adversarial(node, params, rng, x_q[0], extreme)
+        return p, (x, _random_pm127(rng, x_q[1]))
     dev = x_q.device
     p = dict(params)
     w = params[node.params[0]]
@@ -346,6 +415,19 @@ def _adversarial(node, params, rng, x_q, extreme: bool):
         rng.uniform(0.5, 8.0, kshape[-1]) * np.sqrt(k)
     p[node.params[1]] = torch.as_tensor((scale / (wmax * k)).astype(np.float32)).to(dev)
     return p, x
+
+
+def _random_pm127(rng, like):
+    return torch.as_tensor(rng.choice(np.array([127, -127], np.int8),
+                                      size=tuple(like.shape))).to(like.device)
+
+
+def _random_like(rng, x_q):
+    """Random int8 of x_q's shape (each tensor of a pair)."""
+    if isinstance(x_q, tuple):
+        return tuple(_random_like(rng, x) for x in x_q)
+    xv = rng.integers(-127, 128, tuple(x_q.shape), dtype=np.int8)
+    return torch.as_tensor(xv).to(x_q.device)
 
 
 def _ragged_cases(rng, dev):
@@ -488,37 +570,43 @@ class KernelStats:
         return self.check(kernel, f"{node.name} {what}", _call(node, params, x_q),
                           _call(node, params, x_q, plain=True))
 
-    def time(self, kernel, node, params, x_q, y, mult):
+    def time(self, kernel, node, params, x_q, y, mult, total=True):
+        """Time the node ``mult`` times a forward: a row of the per-shape
+        table, and with ``total`` into the kernels line."""
         ms = cuda_ms(lambda: _call(node, params, x_q), 20)
         plain_ms = cuda_ms(lambda: _call(node, params, x_q, plain=True), 3)
         library = _library(node, params, x_q)
         library_ms = cuda_ms(library, 20) if library else None
         bytes_ms, ops_ms = _bound_ms(node, params, x_q, y)
-        s = self.k[kernel]
-        s["ms"] += ms * mult
-        s["plain_ms"] += plain_ms * mult
-        s["library_ms"] = None if library_ms is None else s["library_ms"] + library_ms * mult
-        s["bound_ms"] += max(bytes_ms, ops_ms) * mult
-        s["bytes_bound_ms"] += bytes_ms * mult if bytes_ms >= ops_ms else 0.0
+        if total:
+            s = self.k[kernel]
+            s["ms"] += ms * mult
+            s["plain_ms"] += plain_ms * mult
+            s["library_ms"] = None if library_ms is None else s["library_ms"] + library_ms * mult
+            s["bound_ms"] += max(bytes_ms, ops_ms) * mult
+            s["bytes_bound_ms"] += bytes_ms * mult if bytes_ms >= ops_ms else 0.0
         if node.op == "qblockchain":
             shape = {"blocks": len(node.attrs["blocks"]),
                      "cm": [blk["cm"] for blk in node.attrs["blocks"]]}
         elif node.op == "qlrn":
             shape = {"radius": node.attrs["radius"]}
+        elif node.op == "qattention_core":
+            shape = {"heads": node.attrs["heads"], "dim": node.attrs["dim"]}
         else:
             shape = {"kshape": node.attrs["kshape"], "strides": node.attrs.get("strides"),
-                     "wfmt": node.attrs["wfmt"]}
+                     "wfmt": node.attrs["wfmt"], "residual": isinstance(x_q, tuple)}
         self.rows.append({"kernel": kernel, "node": node.name, "count": mult,
-                          "x": list(x_q.shape), **shape,
+                          "x": list(_main_input(x_q).shape), **shape,
                           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                           "bytes_ms": bytes_ms, "ops_ms": ops_ms})
 
 
-def phase_kernels(engines, images, stats, timed: bool):
+def phase_kernels(engines, images, stats, timed: bool, total: bool = True):
     """Holds every conv and dense node of the engines' graphs against its
-    plain version: on its real input (the plain path's value), with relu
-    flipped on random inputs, and with +-127 inputs; one node of each
-    distinct shape timed at batch 64 when ``timed``. Returns the plain
+    plain version: on its real input (the plain path's value; with its
+    residual, if it has one), with relu flipped on random inputs, and with
+    +-127 inputs; one node of each distinct shape timed at batch 64 when
+    ``timed`` (into the kernels line when ``total``). Returns the plain
     path's values of every node at each batch."""
     from tf2_tpu_torch.graph import execute
     from tf2_tpu_torch.kernels import dispatch
@@ -536,21 +624,24 @@ def phase_kernels(engines, images, stats, timed: bool):
             x = env[node.inputs[0]]
             if "s_in" in node.attrs:
                 x = dispatch.quantize(x, node.attrs["s_in"])
+            if len(node.inputs) > 1:
+                x = (x, env[node.inputs[1]])
             key = json.dumps([node.op, node.attrs["kshape"], node.attrs.get("strides"),
-                              node.attrs.get("padding"), node.attrs["wfmt"], list(x.shape)])
+                              node.attrs.get("padding"), node.attrs["wfmt"],
+                              list(_main_input(x).shape), isinstance(x, tuple)])
             groups.setdefault(key, []).append((node, x))
         for members in groups.values():
             node, x = members[0]
             kernel = _which_kernel(node, eng.params, x)
             for n, xm in members:
                 y = stats.compare(kernel, n, eng.params, xm, f"b{b} main-path input")
-            xr = torch.as_tensor(rng.integers(-127, 128, tuple(x.shape), dtype=np.int8)).to(x.device)
-            stats.compare(kernel, _flip_relu(node), eng.params, xr, f"b{b} random, relu flipped")
+            stats.compare(kernel, _flip_relu(node), eng.params, _random_like(rng, x),
+                          f"b{b} random, relu flipped")
             for extreme in (True, False):
                 p, xa = _adversarial(node, eng.params, rng, x, extreme)
                 stats.compare(kernel, node, p, xa, f"b{b} +-127 extreme={extreme}")
             if timed and b == 64:
-                stats.time(kernel, node, eng.params, x, y, len(members))
+                stats.time(kernel, node, eng.params, x, y, len(members), total)
     stats.raise_on_mismatch("kernels disagree with their plain versions")
     return plain_envs
 
@@ -570,7 +661,8 @@ def phase_ragged_kernels(stats, dev):
 def phase_qlrn(engine_by_batch, plain_envs, stats):
     """Holds every qlrn node against ``qlrn_plain``: on its real input at
     each batch, then at the same shapes on random int8 inputs and on +-127
-    inputs under each scale set of QLRN_SCALES at radius 1 and 2, then on
+    inputs under each scale set of QLRN_SCALES at radius 1 and 2 and each
+    beta of QLRN_BETAS, then on
     ragged shapes (odd pixel counts, C = 13, C < 2r + 1, one pixel); times
     each node at batch 64 (kernel, plain, bound, library)."""
     from tf2_tpu_torch.kernels import qlrn
@@ -585,12 +677,12 @@ def phase_qlrn(engine_by_batch, plain_envs, stats):
                       "+-127": rng.choice(np.array([-127, 127], np.int8), size=tuple(x.shape))}
             for what, xv in inputs.items():
                 xr = torch.as_tensor(xv).to(dev)
-                for s_in, s_out, alpha in QLRN_SCALES:
-                    for radius in (1, 2):
-                        kw = dict(radius=radius, alpha=alpha, beta=0.75, bias=1.0,
-                                  s_in=s_in, s_out=s_out)
-                        stats.check("qlrn", f"{node.name} b{b} {what} {kw}",
-                                    qlrn.qlrn(xr, **kw), qlrn.qlrn_plain(xr, **kw))
+                for (s_in, s_out, alpha), radius, beta in itertools.product(
+                        QLRN_SCALES, (1, 2), QLRN_BETAS):
+                    kw = dict(radius=radius, alpha=alpha, beta=beta, bias=1.0,
+                              s_in=s_in, s_out=s_out)
+                    stats.check("qlrn", f"{node.name} b{b} {what} {kw}",
+                                qlrn.qlrn(xr, **kw), qlrn.qlrn_plain(xr, **kw))
             if b == 64:
                 stats.time("qlrn", node, eng.params, x, y, 1)
             else:
@@ -598,8 +690,8 @@ def phase_qlrn(engine_by_batch, plain_envs, stats):
                     f"{cuda_ms(lambda: _call(node, eng.params, x), 20):.6f} ms")
     for m, c, radius in [(3137, 64, 2), (1001, 192, 1), (777, 13, 2), (5, 3, 2), (1, 192, 2)]:
         xr = torch.as_tensor(rng.integers(-127, 128, (m, c), dtype=np.int8)).to(dev)
-        for s_in, s_out, alpha in QLRN_SCALES:
-            kw = dict(radius=radius, alpha=alpha, beta=0.75, bias=1.0, s_in=s_in, s_out=s_out)
+        for (s_in, s_out, alpha), beta in itertools.product(QLRN_SCALES, QLRN_BETAS):
+            kw = dict(radius=radius, alpha=alpha, beta=beta, bias=1.0, s_in=s_in, s_out=s_out)
             stats.check("qlrn", f"ragged {m}x{c} {kw}", qlrn.qlrn(xr, **kw),
                         qlrn.qlrn_plain(xr, **kw))
     stats.raise_on_mismatch("the qlrn kernel disagrees with its plain version")
@@ -718,6 +810,115 @@ def phase_zoo(name, images, stats):
     return launches, summary
 
 
+def vit_artifact(name: str):
+    """Full-width ViT-B/16 at W8: the synthetic artifact's recipe
+    (``models.synthetic_quantized``), with the position embedding, the class
+    token and every layer norm's scale and offset drawn from a seeded
+    generator (init_params leaves them at 0 and 1), so that qbias_add, the
+    class token and the layer norms' affine do real work."""
+    from tf2_tpu_torch.graph import init_params
+    from tf2_tpu_torch.graph.optimize import patchify_stem
+    from tf2_tpu_torch.models import SYNTHETIC_ACT_SCALE, get_model
+    from tf2_tpu_torch.transform import QuantSpec, fold_batch_norm, quantize_graph
+
+    g = get_model(name, batch=64, image=224, classes=1000)
+    params = init_params(g, seed=0)
+    rng = np.random.default_rng(3)
+    for k, v in sorted(params.items()):
+        if k in ("pos_embed", "cls_token"):
+            params[k] = (0.5 * rng.standard_normal(v.shape)).astype(np.float32)
+        elif k.endswith(".scale"):
+            params[k] = (1 + 0.2 * rng.standard_normal(v.shape)).astype(np.float32)
+        elif k.endswith(".offset"):
+            params[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+    fg, fp = patchify_stem(*fold_batch_norm(g, params))
+    scales = dict.fromkeys(list(fg.inputs) + [n.name for n in fg.nodes], SYNTHETIC_ACT_SCALE)
+    return quantize_graph(fg, fp, scales, QuantSpec(weight_bits=8))
+
+
+def phase_vit_artifact(name: str):
+    """The ViT artifact, saved and loaded back; Engines at batch 64 and 1
+    and on the CPU at batch 1. -> (engines[batch], cpu_engine)."""
+    from tf2_tpu_torch.runtime import Engine
+    from tf2_tpu_torch.transform import load_artifact, save_artifact
+
+    t = time.time()
+    art = vit_artifact(name)
+    with tempfile.TemporaryDirectory() as d:
+        save_artifact(d, art.graph, art.params)
+        graph, params = load_artifact(d)
+    if graph.to_json() != art.graph.to_json():
+        raise RuntimeError(f"{name}: artifact round trip changed the graph")
+    for k, v in art.params.items():
+        if not np.array_equal(params[k], v):
+            raise RuntimeError(f"{name}: artifact round trip changed {k}")
+    engines = {b: Engine(graph.with_batch_size(b), params) for b in (64, 1)}
+    cpu_engine = Engine(graph.with_batch_size(1), params, device="cpu")
+    log(f"artifact {name}: {len(params)} tensors, {art.size_bytes() / 1e6:.1f} MB, "
+        f"transform + save + load + engines {time.time() - t:.1f} s")
+    return engines, cpu_engine
+
+
+def _attention_node(node, s_in, s_out):
+    from tf2_tpu_torch.graph import Node
+
+    return Node(node.name, node.op, node.inputs, node.params,
+                dict(node.attrs, s_in=s_in, s_out=s_out))
+
+
+def phase_qattention(engines, plain_envs, stats, timed: bool):
+    """Holds every qattention_core node against ``qattention_plain``: on its
+    real input at each batch, then at the same shape on random qkv under
+    each pair of ATTN_SCALES and on +-127 inputs, then on ragged (N, T,
+    heads, hd); times the kernel at batch 64 when ``timed`` (the first node,
+    times the nodes a forward: they share the shape)."""
+    from tf2_tpu_torch.graph import Node
+
+    rng = np.random.default_rng(6)
+    dev = next(iter(plain_envs[1].values())).device
+    for b, eng in engines.items():
+        nodes = [n for n in eng.graph.nodes if n.op == "qattention_core"]
+        for node in nodes:
+            x = plain_envs[b][node.inputs[0]]
+            stats.compare("qattention", node, eng.params, x, f"b{b} main-path input")
+            for s_in, s_out in ATTN_SCALES:
+                stats.compare("qattention", _attention_node(node, s_in, s_out), eng.params,
+                              _random_like(rng, x), f"b{b} random s_in {s_in} s_out {s_out}")
+            stats.compare("qattention", node, eng.params, _random_pm127(rng, x), f"b{b} +-127")
+        x = plain_envs[b][nodes[0].inputs[0]]
+        if b == 64 and timed:
+            stats.time("qattention", nodes[0], eng.params, x, None, len(nodes))
+        elif b == 1:
+            log(f"qattention {nodes[0].name} b1: "
+                f"{cuda_ms(lambda: _call(nodes[0], eng.params, x), 20):.6f} ms")
+    for n, t, heads, hd in [(3, 50, 4, 64), (2, 17, 4, 16), (1, 1, 12, 64), (5, 197, 12, 64)]:
+        node = Node(f"ragged_{n}x{t}x{heads}x{hd}", "qattention_core", ("qkv",), (),
+                    {"heads": heads, "dim": heads * hd})
+        qkv = rng.integers(-127, 128, (n, t, 3 * heads * hd), dtype=np.int8)
+        qkv = torch.as_tensor(qkv).to(dev)
+        for s_in, s_out in ATTN_SCALES:
+            stats.compare("qattention", _attention_node(node, s_in, s_out), {}, qkv, "ragged")
+    stats.raise_on_mismatch("the attention kernel disagrees with its plain version")
+    log(f"qattention: {stats.k['qattention']['checks']} checks, max |err| "
+        f"{stats.k['qattention']['max_abs_err']}")
+
+
+def phase_vit(name, images, stats):
+    """Phase 10 for one model: the artifact and Engines; every qdense node
+    (with and without a residual) against its plain version, timed per
+    shape outside the kernels line when the model is vit_b16; every
+    qattention_core node (timed into the kernels line for vit_b16); both
+    batches through phase_main. Returns (launches per b64 forward,
+    summary)."""
+    engines, cpu_engine = phase_vit_artifact(name)
+    timed = name == "vit_b16"
+    envs = phase_kernels(engines, images, stats, timed=timed, total=False)
+    phase_qattention(engines, envs, stats, timed)
+    launches, summary, _ = phase_main(name, engines, cpu_engine, images, envs, VIT_LAUNCHES)
+    log(f"{name}: kernels " + ", ".join(f"{k} {v['checks']} checks" for k, v in stats.k.items()))
+    return launches, summary
+
+
 def main() -> int:
     smi = phase_card()
     phase_build()
@@ -741,6 +942,10 @@ def main() -> int:
         zoo_launches, zoo[name] = phase_zoo(name, images, stats)
         if name == "googlenet":
             launches["qlrn"] = zoo_launches["qlrn"]
+    for name in ("vit_b16", "vit_b16_cls"):
+        vit_launches, zoo[name] = phase_vit(name, images, stats)
+        if name == "vit_b16":
+            launches["qattention"] = vit_launches["qattention"]
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         s = stats.k[name]

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from tf2_tpu_torch import kernels
-from tf2_tpu_torch.kernels import qblocks, qconv, qlrn, shift_matmul
+from tf2_tpu_torch.kernels import qattention, qblocks, qconv, qlrn, shift_matmul
 from tf2_tpu_torch.transform import potq
 
 
@@ -113,7 +113,7 @@ def test_engine_every_node_equals_plain(cuda):
     logits = eng.run(image=x)
     assert kernels.launch_counts() == {"qmatmul_pot4": 9, "qmatmul_int8": 1,
                                        "qconv_s1": 1, "qconv_s2": 7, "qblockchain": 0,
-                                       "qlrn": 0}
+                                       "qlrn": 0, "qattention": 0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
@@ -201,7 +201,7 @@ def test_block_fused_engine_every_node_equals_plain(cuda):
     logits = eng.run(image=x)
     assert kernels.launch_counts() == {"qmatmul_pot4": 6, "qmatmul_int8": 1,
                                        "qconv_s1": 0, "qconv_s2": 7, "qblockchain": 4,
-                                       "qlrn": 0}
+                                       "qlrn": 0, "qattention": 0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
@@ -246,18 +246,142 @@ def test_qlrn_kernel_on_a_view_offset_in_memory(cuda):
 
 
 @pytest.mark.cuda
-def test_qlrn_kernel_refuses_other_beta(cuda):
-    x = torch.zeros((4, 8, 8, 96), dtype=torch.int8, device=cuda)
-    with pytest.raises(NotImplementedError, match="beta"):
-        qlrn.qlrn(x, radius=1, alpha=2e-4, beta=0.5, bias=1.0, s_in=0.03, s_out=0.03)
+@pytest.mark.parametrize("m,c", [(3137, 64), (1001, 192), (777, 13)])
+@pytest.mark.parametrize("beta", [0.5, 0.6, 1.0])
+def test_qlrn_kernel_other_beta(cuda, m, c, beta):
+    """beta != 0.75: t^beta as the double exp and log, the same functions
+    in the kernel and in the plain version on the card."""
+    rng = np.random.default_rng(m + c)
+    x = torch.as_tensor(rng.integers(-127, 128, (m, c), dtype=np.int8)).to(cuda)
+    for s_in, s_out, alpha in [(0.0312, 0.0279, 2e-4), (0.2, 0.05, 1e-3)]:
+        kw = dict(radius=2, alpha=alpha, beta=beta, bias=1.0, s_in=s_in, s_out=s_out)
+        assert torch.equal(qlrn.qlrn(x, **kw), qlrn.qlrn_plain(x, **kw))
+
+
+@pytest.mark.cuda
+def test_qlrn_kernel_refuses_too_many_channels(cuda):
+    x = torch.zeros((2, 9000), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="channels"):
+        qlrn.qlrn(x, radius=1, alpha=2e-4, beta=0.75, bias=1.0, s_in=0.03, s_out=0.03)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("m,k,n", [(12544, 768, 768), (394, 3072, 768), (100, 64, 130),
+                                   (1, 48, 16)])
+def test_residual_qmatmul_matches_plain(cuda, m, k, n, relu):
+    """The int8 GEMM with the residual added in the epilogue (the ViT's
+    proj and mlp2), outputs clipped at both ends."""
+    rng = np.random.default_rng(m + n)
+    x, _, w, es, eb = _gemm(rng, m, k, n)
+    r = rng.integers(-127, 128, (m, n), dtype=np.int8)
+    es = (rng.uniform(0.5, 3.0, n) / (127 * np.sqrt(k))).astype(np.float32)
+    eb = rng.normal(0, 20, n).astype(np.float32)
+    x, w, es, eb, r = _tensors(cuda, x, w, es, eb, r)
+    before = kernels.launch_counts()["qmatmul_int8"]
+    got = shift_matmul.qmatmul_int8(x, w, es, eb, relu, residual=(r, 0.73))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["qmatmul_int8"] == before + 1
+    want = shift_matmul.qmatmul_int8_plain(x, w, es, eb, relu, residual=(r, 0.73))
+    assert torch.equal(got, want)
+    assert not torch.equal(got, shift_matmul.qmatmul_int8(x, w, es, eb, relu))
+    with pytest.raises(ValueError, match="residual"):
+        shift_matmul.qmatmul_int8(x, w, es, eb, relu, residual=(r[:, :-1].contiguous(), 0.73))
+
+
+def _qkv(rng, n, t, dim, extreme=False):
+    if extreme:
+        return rng.choice(np.array([-127, 127], np.int8), size=(n, t, 3 * dim))
+    return rng.integers(-127, 128, (n, t, 3 * dim), dtype=np.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,heads,hd", [(3, 50, 4, 64), (2, 17, 4, 16), (1, 1, 12, 64),
+                                          (5, 197, 12, 64), (2, 196, 12, 64), (2, 77, 3, 48),
+                                          (1, 130, 2, 128), (2, 33, 5, 32)])
+@pytest.mark.parametrize("s_in,s_out", [(0.005, 0.01), (0.02, 0.05), (0.1, 0.05)])
+def test_qattention_kernel_matches_plain(cuda, n, t, heads, hd, s_in, s_out):
+    """Ragged N and T (T = 1, T not a multiple of 8 or of the 64-row query
+    blocks), every head width class (16, 32, 48, 64, 128), softmax from flat
+    to peaked, and +-127 inputs."""
+    rng = np.random.default_rng(n * t + hd)
+    dim = heads * hd
+    kw = dict(heads=heads, dim=dim, s_in=s_in, s_out=s_out)
+    for extreme in (False, True):
+        qkv = torch.as_tensor(_qkv(rng, n, t, dim, extreme)).to(cuda)
+        before = kernels.launch_counts()["qattention"]
+        got = qattention.qattention(qkv, **kw)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["qattention"] == before + 1
+        assert got.shape == (n, t, dim) and torch.equal(got, qattention.qattention_plain(qkv, **kw))
+        if not extreme:
+            assert torch.equal(got.cpu(), qattention.qattention_plain(qkv.cpu(), **kw))
+
+
+@pytest.mark.cuda
+def test_qattention_kernel_at_its_longest_sequence(cuda):
+    for hd in (64, 128):
+        t = qattention.max_tokens(hd)
+        assert t >= 197
+        qkv = torch.as_tensor(_qkv(np.random.default_rng(hd), 1, t, 2 * hd)).to(cuda)
+        kw = dict(heads=2, dim=2 * hd, s_in=0.02, s_out=0.05)
+        assert torch.equal(qattention.qattention(qkv, **kw), qattention.qattention_plain(qkv, **kw))
+        with pytest.raises(ValueError, match="tokens"):
+            qattention.qattention(torch.zeros((1, t + 1, 6 * hd), dtype=torch.int8,
+                                              device=cuda), **kw)
+
+
+@pytest.mark.cuda
+def test_qattention_refuses_what_it_does_not_take(cuda):
+    kw = dict(s_in=0.02, s_out=0.05)
+    with pytest.raises(ValueError, match="head width"):
+        qattention.qattention(torch.zeros((1, 8, 3 * 96), dtype=torch.int8, device=cuda),
+                              heads=4, dim=96, **kw)  # hd 24
+    with pytest.raises(ValueError, match="head width"):
+        qattention.qattention(torch.zeros((1, 8, 3 * 288), dtype=torch.int8, device=cuda),
+                              heads=2, dim=288, **kw)  # hd 144
+    base = torch.zeros(3 * 64 * 8 + 1, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        qattention.qattention(base[1:].view(1, 8, 192), heads=1, dim=64, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vit_b16", "vit_b16_cls"])
+@pytest.mark.parametrize("weight_bits", [8, 4])
+def test_vit_engine_every_node_equals_plain(cuda, name, weight_bits):
+    """A small ViT (depth 2, dim 64, 4 heads, image 64) through Engine on
+    the card: launch counts per forward, every node equal to the plain path
+    on the card, logits equal to the Engine on the CPU. At W4 the qkv and
+    mlp1 GEMMs keep packed pot4 codes and the residual GEMMs are decoded."""
+    from tf2_tpu_torch.graph import execute
+    from tf2_tpu_torch.models import synthetic_quantized
+    from tf2_tpu_torch.runtime import Engine
+
+    art = synthetic_quantized(name, seed=0, batch=2, image=64, classes=10, dim=64, depth=2,
+                              heads=4, weight_bits=weight_bits)
+    x = np.random.default_rng(0).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    eng = Engine(art.graph, art.params)
+    kernels.reset_launch_counts()
+    logits = eng.run(image=x)
+    pot4 = 0 if weight_bits == 8 else 4
+    assert kernels.launch_counts() == {"qmatmul_pot4": pot4, "qmatmul_int8": 10 - pot4,
+                                       "qconv_s1": 0, "qconv_s2": 0, "qblockchain": 0,
+                                       "qlrn": 0, "qattention": 2}
+    xt = torch.as_tensor(x).to(cuda)
+    _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
+    _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
+    for n in eng.graph.nodes:
+        assert torch.equal(env[n.name], plain[n.name]), n.name
+    cpu = Engine(art.graph, art.params, device="cpu").run(image=x)
+    assert torch.equal(logits.cpu(), cpu)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,image,launches", [
     ("googlenet", 64, {"qmatmul_pot4": 37, "qmatmul_int8": 1, "qconv_s1": 19,
-                       "qconv_s2": 1, "qblockchain": 0, "qlrn": 2}),
+                       "qconv_s2": 1, "qblockchain": 0, "qlrn": 2, "qattention": 0}),
     ("squeezenet_v1_1", 96, {"qmatmul_pot4": 16, "qmatmul_int8": 1, "qconv_s1": 8,
-                             "qconv_s2": 1, "qblockchain": 0, "qlrn": 0}),
+                             "qconv_s2": 1, "qblockchain": 0, "qlrn": 0, "qattention": 0}),
 ])
 def test_zoo_engines_every_node_equals_plain(cuda, name, image, launches):
     """GoogLeNet and SqueezeNet at batch 2 on the card, merge_1x1 off and

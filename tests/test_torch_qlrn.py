@@ -86,6 +86,21 @@ def test_plain_qlrn_scale_sets(s_in, s_out, alpha, radius):
     _within_bar(got.numpy(), np.asarray(want), f"s_in {s_in} s_out {s_out} alpha {alpha} r{radius}")
 
 
+@pytest.mark.parametrize("beta", [0.5, 0.6, 1.0])
+@pytest.mark.parametrize("radius", [1, 2])
+def test_plain_qlrn_other_beta(beta, radius):
+    """beta != 0.75, where the port takes t^beta as the float64 exp and
+    log (which the kernel calls too) and the reference ``jnp.power``: on
+    GoogLeNet's lrn_1 channel count, under a scale set where t ranges far
+    from 1."""
+    x = np.random.default_rng(int(beta * 10) + radius).integers(
+        -127, 128, (2, 16, 16, 192), dtype=np.int8)
+    kw = dict(radius=radius, alpha=1e-3, beta=beta, bias=1.0, s_in=0.2, s_out=0.05)
+    want = jax.jit(functools.partial(reference_qlrn, **kw))(jnp.asarray(x))
+    got = qlrn.qlrn(torch.as_tensor(x), **kw)
+    _within_bar(got.numpy(), np.asarray(want), f"beta {beta} r{radius}")
+
+
 def test_plain_qlrn_steps():
     """One element by hand: every step rounded to f32, the window sum
     exact, the edge channels' windows clipped to the channels there are."""

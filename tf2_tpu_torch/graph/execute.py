@@ -12,7 +12,7 @@ from typing import Callable, Mapping
 import torch
 import torch.nn.functional as F
 
-from ..kernels import qconv, qlrn
+from ..kernels import dispatch, qconv, qlrn
 from .ir import Graph, Node
 
 Params = Mapping[str, torch.Tensor]
@@ -51,6 +51,109 @@ def execute(graph: Graph, intermediates: bool = False, plain: bool = False):
         return (result, env) if intermediates else result
 
     return fn
+
+
+# f32 ops: the folded model before quantization (``activation_shapes`` runs
+# them on ``meta`` tensors) and the fp nodes a quantized graph keeps
+
+@register_op("conv2d")
+def _conv2d(node: Node, params, x):
+    """NHWC x HWIO in f32, TF padding applied explicitly (it can be
+    asymmetric), plus the bias."""
+    w = params[node.params[0]]
+    kh, kw = w.shape[0], w.shape[1]
+    sh, sw = node.attrs.get("strides", [1, 1])
+    padding = node.attrs.get("padding", "SAME")
+    if not isinstance(padding, str):
+        padding = [tuple(p) for p in padding]
+    (ph0, ph1), (pw0, pw1) = qconv.resolve_pads(padding, kh, kw, sh, sw,
+                                                x.shape[1], x.shape[2])
+    xp = F.pad(x.permute(0, 3, 1, 2), (pw0, pw1, ph0, ph1))
+    out = F.conv2d(xp, w.to(x.dtype).permute(3, 2, 0, 1), stride=(sh, sw),
+                   groups=node.attrs.get("groups", 1)).permute(0, 2, 3, 1).contiguous()
+    if len(node.params) > 1:
+        out = out + params[node.params[1]].to(out.dtype)
+    return out
+
+
+@register_op("dense")
+def _dense(node: Node, params, x):
+    out = torch.matmul(x, params[node.params[0]].to(x.dtype))
+    if len(node.params) > 1:
+        out = out + params[node.params[1]].to(out.dtype)
+    return out
+
+
+@register_op("layer_norm")
+def _layer_norm(node: Node, params, x):
+    scale, offset = (params[p].to(torch.float32) for p in node.params)
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + node.attrs.get("eps", 1e-6)) * scale
+            + offset).to(x.dtype)
+
+
+@register_op("attention_core")
+def _attention_core(node: Node, params, qkv):
+    """Per-head softmax(QK^T / sqrt(hd)) V on a packed (N, T, 3 * dim)
+    tensor -> (N, T, dim)."""
+    heads, dim = node.attrs["heads"], node.attrs["dim"]
+    hd = dim // heads
+    n, t, _ = qkv.shape
+    q, k, v = (z.reshape(n, t, heads, hd).transpose(1, 2)
+               for z in torch.split(qkv, dim, dim=-1))
+    logits = torch.matmul(q, k.transpose(-1, -2)) / float(hd) ** 0.5
+    out = torch.matmul(torch.softmax(logits, dim=-1), v)
+    return out.transpose(1, 2).reshape(n, t, dim).to(qkv.dtype)
+
+
+@register_op("bias_add")
+def _bias_add(node: Node, params, x):
+    return x + params[node.params[0]].to(x.dtype)
+
+
+@register_op("relu")
+def _relu(node, params, x):
+    return torch.relu(x)
+
+
+@register_op("gelu")
+def _gelu(node, params, x):
+    return dispatch.gelu_tanh(x)
+
+
+@register_op("add")
+def _add(node, params, a, b):
+    return a + b
+
+
+@register_op("reshape")
+def _reshape(node: Node, params, x):
+    return x.reshape(node.attrs["shape"])
+
+
+@register_op("flatten")
+def _flatten(node, params, x):
+    return x.reshape(x.shape[0], -1)
+
+
+@register_op("transpose")
+def _transpose(node: Node, params, x):
+    """Copied: the kernels downstream take only contiguous tensors."""
+    return x.permute(node.attrs["perm"]).contiguous()
+
+
+@register_op("prepend_token")
+def _prepend_token(node: Node, params, x):
+    tok = params[node.params[0]].to(x.dtype)
+    return torch.cat([tok.expand(x.shape[0], 1, x.shape[-1]), x], dim=1)
+
+
+@register_op("take_token")
+def _take_token(node: Node, params, x):
+    """Copied, as ``transpose``."""
+    return x[:, node.attrs.get("idx", 0), :].contiguous()
 
 
 @register_op("maxpool")

@@ -275,8 +275,17 @@ class GraphBuilder:
                   for p in ("scale", "offset", "mean", "var")]
         return self.raw("batch_norm", [x], params, name=nm, eps=eps)
 
+    def layer_norm(self, x: str, c: int, eps: float = 1e-6,
+                   name: str | None = None) -> str:
+        nm = self._fresh("layer_norm", name)
+        params = [self._param(f"{nm}.scale", (c,)), self._param(f"{nm}.offset", (c,))]
+        return self.raw("layer_norm", [x], params, name=nm, eps=eps)
+
     def relu(self, x: str, name: str | None = None) -> str:
         return self.raw("relu", [x], name=name)
+
+    def gelu(self, x: str, name: str | None = None) -> str:
+        return self.raw("gelu", [x], name=name)
 
     def add(self, a: str, b: str, name: str | None = None) -> str:
         return self.raw("add", [a, b], name=name)
@@ -296,6 +305,15 @@ class GraphBuilder:
 
     def concat(self, xs: Iterable[str], axis: int = -1, name: str | None = None) -> str:
         return self.raw("concat", list(xs), name=name, axis=axis)
+
+    def reshape(self, x: str, shape: Iterable[int], name: str | None = None,
+                batch_leading: bool | None = None) -> str:
+        """``batch_leading`` says whether shape[0] is the batch, so that
+        ``Graph.with_batch_size`` rewrites (True) or keeps (False) it."""
+        attrs = {"shape": list(shape)}
+        if batch_leading is not None:
+            attrs["batch_leading"] = bool(batch_leading)
+        return self.raw("reshape", [x], name=name, **attrs)
 
     def dropout(self, x: str, rate: float = 0.5, name: str | None = None) -> str:
         return self.raw("dropout", [x], name=name, rate=rate)

@@ -1,7 +1,9 @@
-"""Load-time graph passes. The port has ``fuse_stem_quantize``,
-``fuse_lrn_quantize``, ``merge_sibling_1x1`` and ``fuse_bottleneck_chains``;
-the other passes of ``tf2_tpu.graph.optimize`` come with later slices.
-Each emits the graph the reference's pass emits for the same input."""
+"""Graph passes. The port has the transform-time ``patchify_stem`` and the
+load-time ``fuse_stem_quantize``, ``fuse_lrn_quantize``,
+``hoist_input_quantize``, ``merge_sibling_1x1`` and
+``fuse_bottleneck_chains``; the other passes of ``tf2_tpu.graph.optimize``
+come with later slices. Each emits the graph the reference's pass emits for
+the same input."""
 from __future__ import annotations
 
 from collections import defaultdict
@@ -43,6 +45,116 @@ def fuse_stem_quantize(graph: Graph, params) -> tuple[Graph, dict]:
                      dict(n.attrs, s_in=float(q.attrs["scale"])))
         new_nodes.append(n)
     g = Graph(graph.name, dict(graph.inputs), graph.outputs, new_nodes,
+              dict(graph.params), dict(graph.meta))
+    g.validate()
+    return g, dict(params)
+
+
+def patchify_stem(graph: Graph, params) -> tuple[Graph, dict]:
+    """Rewrite each conv2d whose stride equals its kernel (the ViT patch
+    embedding) as reshape -> transpose -> reshape -> dense, exactly: every
+    output position reads each element of its patch once, so
+    out[b, oy, ox, :] = patch(b, oy, ox) @ W.reshape(kh * kw * cin, cout).
+
+    Runs on the folded f32 graph, before calibration, so the quantizer sees
+    a dense. Matches ungrouped convs with a kernel larger than 1x1 whose
+    input height and width the kernel divides, VALID or SAME padding. The
+    reference's pass swallows a failure of ``activation_shapes`` and
+    returns the graph unchanged; this one raises.
+    """
+    shapes = activation_shapes(graph, params)
+    new_nodes: list[Node] = []
+    new_params = dict(params)
+    new_specs = dict(graph.params)
+    changed = False
+    for n in graph.nodes:
+        if n.op != "conv2d":
+            new_nodes.append(n)
+            continue
+        w = np.asarray(params[n.params[0]])
+        kh, kw, cin, cout = w.shape
+        sh, sw = n.attrs.get("strides", [1, 1])
+        xshape = shapes[n.inputs[0]]
+        if ((sh, sw) != (kh, kw) or (kh, kw) == (1, 1) or n.attrs.get("groups", 1) != 1
+                or xshape[1] % kh or xshape[2] % kw
+                or n.attrs.get("padding", "SAME") not in ("VALID", "SAME")):
+            new_nodes.append(n)
+            continue
+        b_, h, wd, _ = xshape
+        oh, ow = h // kh, wd // kw
+        r1, tr, r2 = f"{n.name}__p1", f"{n.name}__pt", f"{n.name}__p2"
+        new_nodes.append(Node(r1, "reshape", (n.inputs[0],), (),
+                              {"shape": [b_, oh, kh, ow, kw, cin], "batch_leading": True}))
+        new_nodes.append(Node(tr, "transpose", (r1,), (), {"perm": [0, 1, 3, 2, 4, 5]}))
+        new_nodes.append(Node(r2, "reshape", (tr,), (),
+                              {"shape": [b_, oh, ow, kh * kw * cin], "batch_leading": True}))
+        new_nodes.append(Node(n.name, "dense", (r2,), n.params, {}))
+        w2d = w.reshape(kh * kw * cin, cout)
+        new_params[n.params[0]] = w2d
+        new_specs[n.params[0]] = TensorSpec(w2d.shape, str(w2d.dtype))
+        changed = True
+    if not changed:
+        return graph, dict(params)
+    g = Graph(graph.name, dict(graph.inputs), graph.outputs, new_nodes,
+              new_specs, dict(graph.meta))
+    g.validate()
+    return g, new_params
+
+
+_LAYOUT = {"reshape", "transpose", "flatten"}
+
+
+def hoist_input_quantize(graph: Graph, params) -> tuple[Graph, dict]:
+    """Move each quantize node up through the single-consumer reshape,
+    transpose and flatten nodes above it, so that the layout copies move
+    int8 bytes instead of f32 (exact: the quantize is elementwise and these
+    ops permute). The patchified ViT stem's transpose then runs on the int8
+    image. Nodes are re-emitted in the reference pass's order: each sweep
+    over the remaining nodes emits every node whose inputs are ready."""
+    node_map = {n.name: n for n in graph.nodes}
+    consumers: dict[str, list[str]] = {}
+    for n in graph.nodes:
+        for i in n.inputs:
+            consumers.setdefault(i, []).append(n.name)
+    outputs = set(graph.outputs)
+    moved = False
+    for q in [n for n in graph.nodes if n.op == "quantize"]:
+        chain: list[Node] = []
+        cur = q.inputs[0]
+        while (cur in node_map and node_map[cur].op in _LAYOUT
+               and len(consumers.get(cur, [])) == 1 and cur not in outputs):
+            chain.append(node_map[cur])
+            cur = node_map[cur].inputs[0]
+        if not chain:
+            continue
+        # q reads the chain's source, the chain's top reads q, and q's
+        # consumers read the chain's bottom
+        top = chain[-1]
+        for cname in consumers.get(q.name, []):
+            c = node_map[cname]
+            node_map[cname] = Node(c.name, c.op, tuple(chain[0].name if i == q.name else i
+                                                       for i in c.inputs),
+                                   c.params, c.attrs)
+        node_map[q.name] = Node(q.name, "quantize", (cur,), (), dict(q.attrs))
+        node_map[top.name] = Node(top.name, top.op, (q.name,), top.params, dict(top.attrs))
+        moved = True
+    if not moved:
+        return graph, dict(params)
+    order: list[Node] = []
+    emitted: set[str] = set(graph.inputs)
+    remaining = {n.name: node_map[n.name] for n in graph.nodes}
+    while remaining:
+        progress = False
+        for name in list(remaining):
+            n = remaining[name]
+            if all(i in emitted or i not in remaining for i in n.inputs):
+                order.append(n)
+                emitted.add(name)
+                del remaining[name]
+                progress = True
+        if not progress:  # a cycle: leave the graph as it was, as the reference does
+            return graph, dict(params)
+    g = Graph(graph.name, dict(graph.inputs), graph.outputs, order,
               dict(graph.params), dict(graph.meta))
     g.validate()
     return g, dict(params)

@@ -24,8 +24,28 @@ def _qconv2d(node, params, x, plain=False):
 
 
 @register_op("qdense", kernel=True)
-def _qdense(node, params, x, plain=False):
-    return dispatch.qdense(node, params, x, plain=plain)
+def _qdense(node, params, x, *residual, plain=False):
+    return dispatch.qdense(node, params, x, *residual, plain=plain)
+
+
+@register_op("qattention_core", kernel=True)
+def _qattention_core(node, params, qkv, plain=False):
+    return dispatch.qattention_core(node, params, qkv, plain=plain)
+
+
+@register_op("qlayernorm")
+def _qlayernorm(node, params, x):
+    return dispatch.qlayernorm(node, params, x)
+
+
+@register_op("qgelu")
+def _qgelu(node, params, x):
+    return dispatch.qgelu(node, params, x)
+
+
+@register_op("qbias_add")
+def _qbias_add(node, params, x):
+    return dispatch.qbias_add(node, params, x)
 
 
 @register_op("qblockchain", kernel=True)

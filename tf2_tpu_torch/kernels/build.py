@@ -16,11 +16,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("shift_matmul.cu", "qconv.cu", "qblocks.cu", "qlrn.cu")
+SOURCES = ("shift_matmul.cu", "qconv.cu", "qblocks.cu", "qlrn.cu", "qattention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -78,12 +79,21 @@ def library(source: str) -> ctypes.CDLL:
     return _LIBS[source]
 
 
+def f32(value: float) -> float:
+    """``value`` rounded once to f32, as a Python float: how every kernel
+    and plain version takes a node's double scalar."""
+    return float(np.float32(value))
+
+
 @functools.lru_cache(maxsize=256)
-def scalar(value: float, device: torch.device) -> torch.Tensor:
-    """``value`` as a 0-dim f32 tensor on ``device``. Dividing by it is a
-    true division on the card too: CUDA divides by a host scalar as a
-    multiplication by its reciprocal, which rounds differently."""
-    return torch.tensor(value, dtype=torch.float32, device=device)
+def scalar(value: float, device: torch.device,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``value`` as a 0-dim tensor on ``device`` (f32 unless ``dtype``).
+    Dividing by it is a true division on the card too: CUDA divides by a
+    host scalar as a multiplication by its reciprocal, which rounds
+    differently. Cached: a new one is a copy to the card, which waits for
+    the work queued before it."""
+    return torch.tensor(value, dtype=dtype, device=device)
 
 
 def check_operands(device: torch.device, **tensors: tuple[torch.Tensor, torch.dtype, tuple]):

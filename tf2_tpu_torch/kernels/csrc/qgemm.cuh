@@ -30,7 +30,10 @@
 // Epilogue: acc * es and + eb are rounded as two separate f32 operations
 // (__fmul_rn, __fadd_rn). A fused multiply-add would change the f32 value in
 // about a quarter of the elements and break bit-exactness with the plain
-// version. Then relu, round half to even (rintf), clip to +-127.
+// version. With RESID (the GEMM only: a residual add folded into the dense,
+// as the ViT's proj and mlp2), + f32(r) * radd follows as a third rounded
+// step, r being the int8 (M, N) residual. Then relu, round half to even
+// (rintf), clip to +-127.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,6 +57,8 @@ struct Args {
   const float* es;    // (N,)
   const float* eb;    // (N,)
   int8_t* y;          // (M, N); for a conv this is NHWC (B, OH, OW, N)
+  const int8_t* r;    // RESID: the residual (M, N), added as f32(r) * radd
+  float radd;
   int M, N, K;        // CONV: M = B*OH*OW, K = KH*KW*C
   int H, W, C, OH, OW, KW, pad_top, pad_left;
   int relu;
@@ -67,6 +72,16 @@ __device__ __forceinline__ int8_t decode_pot(uint32_t c) {
 
 __device__ __forceinline__ int8_t requant(int acc, float es, float eb, bool relu) {
   float v = __fadd_rn(__fmul_rn(__int2float_rn(acc), es), eb);
+  if (relu) v = fmaxf(v, 0.0f);
+  v = fminf(fmaxf(rintf(v), -127.0f), 127.0f);
+  return (int8_t)__float2int_rn(v);
+}
+
+// requant with the residual: ((acc * es) + eb) + r * radd, each rounded
+__device__ __forceinline__ int8_t requant_resid(int acc, float es, float eb, int8_t r,
+                                               float radd, bool relu) {
+  float v = __fadd_rn(__fadd_rn(__fmul_rn(__int2float_rn(acc), es), eb),
+                      __fmul_rn(__int2float_rn(r), radd));
   if (relu) v = fmaxf(v, 0.0f);
   v = fminf(fmaxf(rintf(v), -127.0f), 127.0f);
   return (int8_t)__float2int_rn(v);
@@ -133,7 +148,7 @@ union Chunk {
   uint8_t b[16];
 };
 
-template <class Tag, int MODE, int STRIDE, bool POT4>
+template <class Tag, int MODE, int STRIDE, bool POT4, bool RESID>
 __global__ void __launch_bounds__(THREADS, 2) qgemm_kernel(const Args p) {
   __shared__ __align__(16) int8_t sA[BM * LDS];  // [m][j]
   __shared__ __align__(16) int8_t sB[BN * LDS];  // [n][j], B transposed
@@ -267,18 +282,24 @@ __global__ void __launch_bounds__(THREADS, 2) qgemm_kernel(const Args p) {
         if (row >= p.M) continue;
         int8_t* out = p.y + (size_t)row * p.N + col;
 #pragma unroll
-        for (int c = 0; c < 2; ++c)
-          if (col + c < p.N) out[c] = requant(acc[i][j][2 * h + c], es[c], eb[c], relu);
+        for (int c = 0; c < 2; ++c) {
+          if (col + c >= p.N) continue;
+          if (RESID)
+            out[c] = requant_resid(acc[i][j][2 * h + c], es[c], eb[c],
+                                   p.r[(size_t)row * p.N + col + c], p.radd, relu);
+          else
+            out[c] = requant(acc[i][j][2 * h + c], es[c], eb[c], relu);
+        }
       }
     }
   }
 }
 
-template <class Tag, int MODE, int STRIDE, bool POT4>
+template <class Tag, int MODE, int STRIDE, bool POT4, bool RESID = false>
 int launch(const Args& p, void* stream) {
   if (p.M > 0 && p.N > 0) {
     const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
-    qgemm_kernel<Tag, MODE, STRIDE, POT4><<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
+    qgemm_kernel<Tag, MODE, STRIDE, POT4, RESID><<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
 }

@@ -10,12 +10,17 @@
 //   win = the channel window [c - r, c + r] of sq, summed in double and
 //         rounded once to f32 (exact in any order: the nonzero squares of
 //         dequantized int8 values span at most 2^14 in magnitude)
-//   t   = bias + alpha * win;  rs = 1 / sqrt(t);  y = (xf * rs) * sqrt(rs)
+//   t   = bias + alpha * win
+//   y   = (xf * rs) * sqrt(rs), rs = 1 / sqrt(t)          (beta = 0.75)
+//   y   = xf / f32(exp(beta * log(double(t))))            (any other beta)
 //   out = clip(rint(y / s_out), +-127)
-// Each step is one correctly rounded operation (__fmul_rn, __fadd_rn,
-// __fsqrt_rn, __fdiv_rn: no contracted FMA, no approximate rsqrt), so the
-// result equals the plain PyTorch version bit for bit on the card and on
-// the CPU.
+// Each f32 step is one correctly rounded operation (__fmul_rn, __fadd_rn,
+// __fsqrt_rn, __fdiv_rn: no contracted FMA, no approximate rsqrt), so at
+// beta = 0.75 the result equals the plain PyTorch version bit for bit on
+// the card and on the CPU. t^beta for another beta is the double-precision
+// log and exp the plain version calls (torch.log, torch.exp), rounded once
+// to f32: on the card the two agree bit for bit; the CPU's libm may round
+// the double differently in its last bit.
 //
 // What bounds it on the card: memory bytes. It reads each int8 input once
 // and writes each int8 output once, for about 20 flops an element.
@@ -60,10 +65,13 @@ __device__ void copy_run(int8_t* dst, const int8_t* src, int n) {
   for (int i = head + (words << 4) + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
-template <class Tag>
+// BETA_075 is a template argument, so the beta = 0.75 kernel carries none of
+// the other path's double exp and log (and keeps its registers and speed)
+template <class Tag, bool BETA_075>
 __global__ void __launch_bounds__(kThreads)
 qlrn_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ y, int m, int c,
-            int radius, int pixels, float s_in, float s_out, float alpha, float bias) {
+            int radius, int pixels, float s_in, float s_out, float alpha, float bias,
+            double beta) {
   extern __shared__ __align__(16) int8_t smem[];
   const int run = pixels * c;
   const int first = blockIdx.x * pixels;
@@ -92,8 +100,13 @@ qlrn_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ y, int m, int c,
     const float win = __double2float_rn(acc);
     const float xf = __fmul_rn(static_cast<float>(s_x[e]), s_in);
     const float t = __fadd_rn(__fmul_rn(win, alpha), bias);
-    const float rs = __fdiv_rn(1.0f, __fsqrt_rn(t));
-    const float v = __fmul_rn(__fmul_rn(xf, rs), __fsqrt_rn(rs));
+    float v;
+    if (BETA_075) {
+      const float rs = __fdiv_rn(1.0f, __fsqrt_rn(t));
+      v = __fmul_rn(__fmul_rn(xf, rs), __fsqrt_rn(rs));
+    } else {
+      v = __fdiv_rn(xf, __double2float_rn(exp(__dmul_rn(beta, log(static_cast<double>(t))))));
+    }
     const float q = rintf(__fdiv_rn(v, s_out));
     s_y[e] = static_cast<int8_t>(fminf(fmaxf(q, -127.0f), 127.0f));
     p += dp;
@@ -114,16 +127,19 @@ qlrn_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ y, int m, int c,
 extern "C" int tf2_qlrn_max_channels() { return (48 * 1024 - 64) / 6; }
 
 // x, y (M, C) int8, contiguous; the window takes `radius` channels on each
-// side. Scalars are f32. Returns cudaGetLastError().
+// side. Scalars are f32; beta_075 selects the beta = 0.75 steps, else beta
+// is the f32 exponent as a double. Returns cudaGetLastError().
 extern "C" int tf2_qlrn(const void* x, void* y, int m, int c, int radius, float s_in,
-                        float s_out, float alpha, float bias, void* stream) {
+                        float s_out, float alpha, float bias, int beta_075, double beta,
+                        void* stream) {
   if (m <= 0 || c <= 0 || radius < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int pixels = c >= kRunBytes ? 1 : kRunBytes / c;
   if (c > tf2_qlrn_max_channels()) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = smem_bytes(pixels * c);
   const unsigned blocks = static_cast<unsigned>((m + pixels - 1) / pixels);
-  qlrn_kernel<qlrn><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = beta_075 ? qlrn_kernel<qlrn, true> : qlrn_kernel<qlrn, false>;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<int8_t*>(y), m, c, radius, pixels,
-      s_in, s_out, alpha, bias);
+      s_in, s_out, alpha, bias, beta);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,11 @@
 //   tf2_qmatmul_pot4  <- _qmm_pot4_kernel (:40, called by qmatmul_pot4 :89)
 //   tf2_qmatmul_int8  <- _qmm_int8_kernel (:59, called by qmatmul_int8 :122)
 // On the ResNet-50 path these run every 1x1 stride-1 conv (as a GEMM over
-// B*H*W pixels, pot4 codes) and the fc (int8 weights).
+// B*H*W pixels, pot4 codes) and the fc (int8 weights). On the W8 ViT-B/16
+// path tf2_qmatmul_int8 runs all 50 dense layers (M = B*T, K x N = 768 x
+// 2304, 768 x 768, 768 x 3072, 3072 x 768), the 24 proj and mlp2 layers with
+// the residual add folded into the epilogue (tf2_tpu/kernels/dispatch.py:
+// 260-273 computes those outside any Pallas kernel).
 //
 // What bounds it on the card: the 1x1 convs of stages 1-2 at batch 64 move
 // tens of MB of int8 activations for 64-256 MACs per byte (M = 200,704,
@@ -51,10 +55,14 @@ extern "C" int tf2_qmatmul_pot4(const void* x, const void* wp, const void* es,
       gemm_args(x, wp, es, eb, y, m, n, k, relu), stream);
 }
 
-// x (M, K) int8, w (K, N) int8, es/eb (N,) f32, y (M, N) int8.
+// x (M, K) int8, w (K, N) int8, es/eb (N,) f32, y (M, N) int8; r (M, N)
+// int8 or null: the residual, added in the epilogue as f32(r) * radd.
 extern "C" int tf2_qmatmul_int8(const void* x, const void* w, const void* es,
-                                const void* eb, void* y, int m, int n, int k,
-                                int relu, void* stream) {
-  return tf2::launch<qmatmul_int8, tf2::GEMM, 1, false>(
-      gemm_args(x, w, es, eb, y, m, n, k, relu), stream);
+                                const void* eb, const void* r, void* y, int m, int n,
+                                int k, int relu, float radd, void* stream) {
+  tf2::Args p = gemm_args(x, w, es, eb, y, m, n, k, relu);
+  if (!r) return tf2::launch<qmatmul_int8, tf2::GEMM, 1, false>(p, stream);
+  p.r = static_cast<const int8_t*>(r);
+  p.radd = radd;
+  return tf2::launch<qmatmul_int8, tf2::GEMM, 1, false, true>(p, stream);
 }

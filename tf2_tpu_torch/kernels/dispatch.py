@@ -1,11 +1,17 @@
 """Executors of the fused quantized ops on torch tensors: every conv and
-dense layer goes through one of the CUDA kernels (or, with ``plain=True``
-or on the CPU, through that kernel's plain version)."""
+dense layer and every attention core goes through one of the CUDA kernels
+(or, with ``plain=True`` or on the CPU, through that kernel's plain
+version). The transformer glue (``qlayernorm``, ``qgelu``, ``qbias_add``)
+is plain PyTorch on either device, as the reference computes it outside
+any kernel, in steps that give the same bits on the card and the CPU."""
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
-from . import build, qblocks, qconv, qlrn as qlrn_kernel, shift_matmul
+from . import build, qattention, qblocks, qconv, qlrn as qlrn_kernel, shift_matmul
 
 
 def quantize(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -31,11 +37,94 @@ def qconv2d(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tenso
         wfmt=node.attrs["wfmt"], kshape=tuple(node.attrs["kshape"]), plain=plain)
 
 
-def qdense(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def qdense(node, params, x_q: torch.Tensor, r_q: torch.Tensor | None = None,
+            plain: bool = False) -> torch.Tensor:
+    """With ``r_q``, the residual folded into the epilogue
+    (transform/quantize.py, ``fold_residual``): r_q * radd_scale is added
+    after es and eb, before relu and the requant."""
+    residual = None
+    if r_q is not None:
+        residual = (r_q.reshape(-1, r_q.shape[-1]), node.attrs["radd_scale"])
     y = shift_matmul.fused_qmatmul(
         x_q.reshape(-1, x_q.shape[-1]), params[node.params[0]], params[node.params[1]],
-        params[node.params[2]], node.attrs["relu"], node.attrs["wfmt"], plain)
+        params[node.params[2]], node.attrs["relu"], node.attrs["wfmt"], plain, residual)
     return y.reshape(*x_q.shape[:-1], y.shape[-1])
+
+
+def qattention_core(node, params, qkv_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """The fused int8 attention core (kernels/qattention.py)."""
+    return qattention.fused_qattention(qkv_q, heads=node.attrs["heads"], dim=node.attrs["dim"],
+                                       s_in=node.attrs["s_in"], s_out=node.attrs["s_out"],
+                                       plain=plain)
+
+
+def _requant(y: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+
+
+def qlayernorm(node, params, x_q: torch.Tensor) -> torch.Tensor:
+    """LayerNorm on the int8 codes, int8 out. Normalization is scale
+    invariant, so the codes normalize directly with eps / s_in^2; the
+    affine and the output quantize fold into gamma / s_out and beta / s_out:
+
+        mu  = f32(S1 / D),  var = f32((D * S2 - S1^2) / D^2)
+        y   = ((x - mu) * (1 / sqrt(var + f32(eps / s_in^2)))) * (gamma / s_out)
+              + beta / s_out
+
+    S1 and S2, the sums of the codes and of their squares, are exact
+    integers in any order, and every other step is one IEEE operation (no
+    fused multiply-add), so the card and the CPU give the same bits. The
+    variance is the exact one where the reference (``tf2_tpu/kernels/
+    dispatch.py:433-451``) takes f32 means and ``rsqrt``: they agree to
+    within one quantum at rounding boundaries."""
+    gamma = params[node.params[0]].to(torch.float32)
+    beta = params[node.params[1]].to(torch.float32)
+    s_in, s_out = node.attrs["s_in"], node.attrs["s_out"]
+    d = x_q.shape[-1]
+    dev = x_q.device
+    xi = x_q.to(torch.int64)
+    s1 = xi.sum(dim=-1, keepdim=True)
+    s2 = (xi * xi).sum(dim=-1, keepdim=True)
+    mu = (s1.to(torch.float64) / build.scalar(d, dev, torch.float64)).to(torch.float32)
+    var = ((d * s2 - s1 * s1).to(torch.float64)
+           / build.scalar(d * d, dev, torch.float64)).to(torch.float32)
+    eps = build.f32(node.attrs.get("eps", 1e-6) / (s_in * s_in))
+    inv = build.scalar(1.0, dev) / torch.sqrt(var + eps)
+    so = build.scalar(build.f32(s_out), dev)
+    y = ((x_q.to(torch.float32) - mu) * inv) * (gamma / so) + beta / so
+    return _requant(y)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)`` in its own f32 op order:
+    x * (0.5 * (1 + tanh(c * (x + 0.044715 * x^3)))), c = f32(sqrt(2/pi))."""
+    c = build.f32(np.sqrt(2 / np.pi))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+
+
+@functools.lru_cache(maxsize=256)
+def _qgelu_table(s_in: float, s_out: float, device: torch.device) -> torch.Tensor:
+    """The int8 output of every int8 input, code + 128 -> code, computed
+    once on the CPU in f32 (f32(q) * f32(s_in), gelu, / f32(s_out), round,
+    clip), then copied to ``device``."""
+    q = torch.arange(-128, 128, dtype=torch.float32)
+    y = gelu_tanh(q * build.f32(s_in))
+    return _requant(y / torch.tensor(build.f32(s_out))).to(device)
+
+
+def qgelu(node, params, x_q: torch.Tensor) -> torch.Tensor:
+    """dequantize -> gelu -> quantize as one gather from a 256-entry table
+    (an int8 input has 255 values): the table is built on the CPU, so every
+    device gives its bits."""
+    table = _qgelu_table(float(node.attrs["s_in"]), float(node.attrs["s_out"]), x_q.device)
+    return table[x_q.to(torch.int64) + 128]
+
+
+def qbias_add(node, params, x_q: torch.Tensor) -> torch.Tensor:
+    """Bias (the ViT position embedding) on the int8 grid: the param is
+    b / s_out already, so y = x * (s_in / s_out) + b / s_out, requantized."""
+    ratio = node.attrs["s_in"] / node.attrs["s_out"]
+    return _requant(x_q.to(torch.float32) * ratio + params[node.params[0]].to(torch.float32))
 
 
 def qblockchain(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
@@ -91,4 +180,4 @@ def qadd(node, params, a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
     y = a_q.to(torch.float32) * (sa / so) + b_q.to(torch.float32) * (sb / so)
     if node.attrs.get("relu"):
         y = torch.clamp_min(y, 0.0)
-    return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+    return _requant(y)

@@ -23,7 +23,6 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from . import build, qconv, shift_matmul
@@ -44,12 +43,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _f32(v: float) -> float:
-    """The f32 the kernel and the plain version multiply by: the host
-    double rounded once to f32."""
-    return float(np.float32(v))
-
-
 def qblockchain_plain(x_q: torch.Tensor, blocks) -> torch.Tensor:
     """Plain version: each conv through the port's exact float64 pieces,
     the same f32 epilogues and add."""
@@ -67,8 +60,8 @@ def qblockchain_plain(x_q: torch.Tensor, blocks) -> torch.Tensor:
             r = shift_matmul.qmatmul_int8_plain(x2, blk["wd"], blk["esd"], blk["ebd"], False)
         else:
             r = x2
-        y = (y3.to(torch.float32) * _f32(blk["sa_over_so"])
-             + r.to(torch.float32) * _f32(blk["sb_over_so"]))
+        y = (y3.to(torch.float32) * build.f32(blk["sa_over_so"])
+             + r.to(torch.float32) * build.f32(blk["sb_over_so"]))
         if blk["relu"]:
             y = torch.clamp_min(y, 0.0)
         x_q = torch.clamp(torch.round(y), -127, 127).to(torch.int8).reshape(b, h, w, cout)
@@ -156,8 +149,8 @@ def qblockchain(x_q: torch.Tensor, blocks) -> torch.Tensor:
             blk["wd"].data_ptr() if down else None, blk["esd"].data_ptr() if down else None,
             blk["ebd"].data_ptr() if down else None, y.data_ptr(),
             b, h, w, cin, cm, cout, int(down), int(blk["relu"]),
-            _f32(blk["sa_over_so"]), _f32(blk["sb_over_so"]), band_rows(b, h, w, cm, sms),
-            stream)
+            build.f32(blk["sa_over_so"]), build.f32(blk["sb_over_so"]),
+            band_rows(b, h, w, cm, sms), stream)
         build.check_launch(rc, "qblockchain")
         x_q, cin = y, cout
     LAUNCHES["qblockchain"] += 1

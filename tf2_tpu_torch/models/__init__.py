@@ -1,13 +1,15 @@
 """Model zoo of the port: IR graph builders by name. The port has the CNNs
-(ResNet-50, GoogLeNet, SqueezeNet v1.1); SSD and ViT of ``tf2_tpu.models``
-come with later slices."""
+(ResNet-50, GoogLeNet, SqueezeNet v1.1) and ViT-B/16 (``vit_b16``, and
+``vit_b16_cls`` with a class token); SSD of ``tf2_tpu.models`` comes with
+a later slice."""
 from __future__ import annotations
 
 from ..graph.ir import Graph
-from . import googlenet, resnet, squeezenet
+from . import googlenet, resnet, squeezenet, vit
 
 _REGISTRY = {"resnet50": resnet.build, "googlenet": googlenet.build,
-             "squeezenet_v1_1": squeezenet.build}
+             "squeezenet_v1_1": squeezenet.build, "vit_b16": vit.build,
+             "vit_b16_cls": lambda **kw: vit.build(cls_token=True, **kw)}
 
 
 def get_model(name: str, **kwargs) -> Graph:
@@ -23,16 +25,21 @@ def list_models() -> list[str]:
 SYNTHETIC_ACT_SCALE = 0.02
 
 
-def synthetic_quantized(name: str, seed: int = 0, **kwargs):
-    """A W4-PoT artifact without a calibration forward: random weights from
-    ``init_params(seed)``, BN folded, every activation scale set to
-    ``SYNTHETIC_ACT_SCALE``. The compute graph is the one a calibrated
-    artifact has."""
+def synthetic_quantized(name: str, seed: int = 0, weight_bits: int = 4, **kwargs):
+    """An artifact without a calibration forward: random weights from
+    ``init_params(seed)``, BN folded, the stride == kernel convs patchified
+    (``graph.optimize.patchify_stem``: the ViT patch embedding; the CNNs
+    have none), every activation scale set to ``SYNTHETIC_ACT_SCALE``,
+    weights at ``weight_bits`` (4: PoT codes, 8: int8; first and last layer
+    int8 either way). The compute graph is the one a calibrated artifact
+    has."""
     from ..graph.init_params import init_params
+    from ..graph.optimize import patchify_stem
     from ..transform import QuantSpec, fold_batch_norm, quantize_graph
 
     g = get_model(name, **kwargs)
-    fg, fp = fold_batch_norm(g, init_params(g, seed=seed))
+    fg, fp = patchify_stem(*fold_batch_norm(g, init_params(g, seed=seed)))
     scales = dict.fromkeys(fg.inputs, SYNTHETIC_ACT_SCALE)
     scales.update(dict.fromkeys((n.name for n in fg.nodes), SYNTHETIC_ACT_SCALE))
-    return quantize_graph(fg, fp, scales, QuantSpec(weight_bits=4, pot_candidates=5))
+    return quantize_graph(fg, fp, scales,
+                          QuantSpec(weight_bits=weight_bits, pot_candidates=5))

@@ -1,6 +1,7 @@
 """Runtime Engine: loads a quantized graph and its params onto a device,
 applies the load-time passes and runs the graph eagerly, layer by layer,
-each conv and dense layer and each LRN in one of the CUDA kernels."""
+each conv and dense layer, each LRN and each attention core in one of the
+CUDA kernels."""
 from __future__ import annotations
 
 from typing import Mapping
@@ -11,7 +12,8 @@ import torch
 from ..graph.execute import execute
 from ..graph.ir import Graph, Node, TensorSpec
 from ..graph.optimize import (fuse_bottleneck_chains, fuse_lrn_quantize,
-                              fuse_stem_quantize, merge_sibling_1x1)
+                              fuse_stem_quantize, hoist_input_quantize,
+                              merge_sibling_1x1)
 from ..kernels.qconv import covers
 from ..transform import potq
 
@@ -48,13 +50,13 @@ def _decode_pot4(graph: Graph, params, names: set[str]):
 def _predecode_fallback_weights(graph: Graph, params):
     """Decode the pot4 qconv2d and qdense nodes that the kernels cannot
     take packed. A conv keeps its packed codes when it is ungrouped with
-    equal strides of 1 or 2 and an even K; a dense when its K is even."""
+    equal strides of 1 or 2 and an even K; a dense when its K is even and
+    it has no residual input (the residual epilogue is the int8 GEMM's)."""
     names = set()
     for n in graph.nodes:
         if n.op in ("qconv2d", "qdense") and n.attrs.get("wfmt") == "pot4":
-            keep = n.op == "qdense" or covers(n.attrs["kshape"],
-                                               n.attrs.get("strides", [1, 1]),
-                                               n.attrs.get("groups", 1))
+            keep = len(n.inputs) == 1 if n.op == "qdense" else covers(
+                n.attrs["kshape"], n.attrs.get("strides", [1, 1]), n.attrs.get("groups", 1))
             if not (keep and np.prod(n.attrs["kshape"][:-1]) % 2 == 0):
                 names.add(n.name)
     return _decode_pot4(graph, params, names)
@@ -101,9 +103,11 @@ class Engine:
     >>> logits = eng.run(image=batch)          # NHWC f32 in, logits out
 
     The load passes: predecode, ``fuse_stem_quantize``, ``fuse_lrn_quantize``,
-    then the optional ones. ``merge_1x1=True`` merges sibling int8 convs on
-    one input into one wide conv and channel slices (``graph/optimize.
-    merge_sibling_1x1``; the merged convs get int8 weights); off by default
+    ``hoist_input_quantize`` (the patchified ViT stem's layout copies then
+    move the int8 image), then the optional ones. ``merge_1x1=True`` merges
+    sibling int8 convs on one input into one wide conv and channel slices
+    (``graph/optimize.merge_sibling_1x1``; the merged convs get int8
+    weights); off by default
     until a measurement on the card decides it (the reference turns it on
     because of a TPU measurement). ``block_fusion=True`` rewrites runs of
     stride-1 bottleneck blocks into ``qblockchain`` nodes, each run by the
@@ -119,6 +123,7 @@ class Engine:
         graph, params = _predecode_fallback_weights(graph, params)
         graph, params = fuse_stem_quantize(graph, params)
         graph, params = fuse_lrn_quantize(graph, params)
+        graph, params = hoist_input_quantize(graph, params)
         if merge_1x1:
             graph, params = _merge_1x1(graph, params)
         if block_fusion:

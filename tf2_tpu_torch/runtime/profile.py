@@ -3,11 +3,12 @@ torch.profiler trace.
 
     python -m tf2_tpu_torch.runtime.profile [--model NAME] [--trace-dir DIR]
 
-Builds the model's synthetic W4-PoT artifact (224x224, 1000 classes;
-``--model`` is resnet50, the default, googlenet or squeezenet_v1_1), warms
-an Engine up at batch 64 and at batch 1, then profiles 5 back-to-back
-forwards of each; then the same with the model's Engine option on
-(``block_fusion=True`` for ResNet-50, ``merge_1x1=True`` for the others).
+Builds the model's synthetic artifact (224x224, 1000 classes; W4-PoT for
+the CNNs, W8 for ViT-B/16; ``--model`` is resnet50, the default, googlenet,
+squeezenet_v1_1, vit_b16 or vit_b16_cls), warms an Engine up at batch 64
+and at batch 1, then profiles 5 back-to-back forwards of each; then, for
+the CNNs, the same with the model's Engine option on (``block_fusion=True``
+for ResNet-50, ``merge_1x1=True`` for GoogLeNet and SqueezeNet).
 Prints one JSON line per engine and batch: device time per forward by kernel family (the
 port's kernels by name, PyTorch's own kernels by short name) and by
 graph op (the executor's "<op>:<node>" ranges, where the trace has them on
@@ -32,8 +33,10 @@ from .. import kernels
 
 BATCHES = (64, 1)
 STEPS = 5
+# model -> the Engine option it profiles (None: the default Engine only)
 OPTIONS = {"resnet50": "block_fusion", "googlenet": "merge_1x1",
-           "squeezenet_v1_1": "merge_1x1"}  # model -> the Engine option it profiles
+           "squeezenet_v1_1": "merge_1x1", "vit_b16": None, "vit_b16_cls": None}
+WEIGHT_BITS = {"vit_b16": 8, "vit_b16_cls": 8}  # the others: 4
 
 
 def kernel_family(name: str) -> str:
@@ -106,7 +109,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     option = OPTIONS[args.model]
-    art = synthetic_quantized(args.model, seed=0, batch=1, image=224, classes=1000)
+    art = synthetic_quantized(args.model, seed=0, weight_bits=WEIGHT_BITS.get(args.model, 4),
+                              batch=1, image=224, classes=1000)
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir = args.trace_dir or tmp
@@ -114,12 +118,13 @@ def main() -> None:
         images = {b: torch.as_tensor(rng.standard_normal((b, 224, 224, 3),
                                                          dtype=np.float32)).cuda()
                   for b in BATCHES}
-        for flag in (False, True):
+        for flag in (False, True) if option else (False,):
             for b in BATCHES:
-                eng = Engine(art.graph.with_batch_size(b), art.params, **{option: flag})
+                kw = {option: flag} if option else {}
+                eng = Engine(art.graph.with_batch_size(b), art.params, **kw)
                 name = f"profile_{args.model}_{option + '_' if flag else ''}b{b}.json"
                 out = profile(eng, images[b], os.path.join(trace_dir, name))
-                print(json.dumps({"model": args.model, "batch": b, option: flag,
+                print(json.dumps({"model": args.model, "batch": b, **kw,
                                   "device": torch.cuda.get_device_name(0), **out}))
 
 

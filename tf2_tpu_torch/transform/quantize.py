@@ -9,13 +9,14 @@ precomputed requant vectors:
     y_q     = clip(round(acc_i32 * eff_scale_c + eff_bias_c))      # epilogue
     eff_scale_c = s_in * s_w_c / s_out ;  eff_bias_c = b_c / s_out
 
-Activations stay int8 through conv/pool/add/concat/LRN chains; ops with
-no integer semantics run fp32 behind dequantize nodes.
-
-The port has the rewrites the CNNs need (conv, dense, add, concat, LRN).
-The rewrites ``tf2_tpu.transform.quantize`` applies to attention and
-transformer ops, and the residual fold into a ``qdense`` epilogue, raise
-NotImplementedError here rather than produce a different graph.
+Activations stay int8 through conv/pool/add/concat/LRN chains and, in a
+transformer, through attention (``qattention_core``) and, with
+``QuantSpec.int8_residual``, layer norm, GELU, bias adds and the class
+token; ops with no integer semantics run fp32 behind dequantize nodes. With
+``QuantSpec.fold_residual`` a residual add whose other input is a
+single-consumer qdense without relu folds into that qdense's epilogue.
+These are the rewrites of ``tf2_tpu.transform.quantize``; each emits the
+reference's nodes and params.
 """
 from __future__ import annotations
 
@@ -30,9 +31,6 @@ from . import potq
 # ops that pass int8 through unchanged (same scale)
 _PASSTHROUGH = {"maxpool", "reshape", "flatten", "identity", "dropout",
                 "transpose", "pad", "take_token"}
-# ops that tf2_tpu quantizes with rewrites this package does not have yet
-_NOT_PORTED = {"attention_core", "layer_norm", "gelu", "bias_add",
-               "prepend_token"}
 
 
 @dataclasses.dataclass
@@ -41,6 +39,12 @@ class QuantSpec:
     weight_bits: int = 4              # 4 => PoT codes; 8 => linear int8
     first_last_w8: bool = True        # keep first/last layers at W8
     pot_candidates: int = 33
+    int8_residual: bool = True        # layer_norm, gelu, bias_add and the
+                                      # class token on int8 (qlayernorm,
+                                      # qgelu, qbias_add) instead of f32
+                                      # behind dequantize/quantize
+    fold_residual: bool = True        # fold a residual add into the qdense
+                                      # epilogue of its other input
 
 
 @dataclasses.dataclass
@@ -61,6 +65,38 @@ def _fit_weight(w: np.ndarray, bits: int, spec: QuantSpec):
     return q, s, None
 
 
+def _fold_residual(node, graph, consumers, val, new_nodes, new_params, candidates,
+                   out_name: str, s_out: float, has_relu: bool) -> bool:
+    """Fold the add ``node`` into the epilogue of one of its producers: the
+    first candidate (original input, residual's new value, residual's
+    scale) whose producer is a single-consumer qdense without relu and not
+    a graph output. That qdense's es and eb are requantized straight onto
+    the add's grid (the ratio of the scales in f32), it takes the residual
+    as a second input with ``radd_scale`` = s_r / s_out, and it takes the
+    add's name and relu. Returns whether it folded."""
+    for d_orig, r_new, s_r in candidates:
+        nv, s_mid = val[d_orig]
+        if s_mid is None or d_orig in graph.outputs or len(consumers.get(d_orig, [])) != 1:
+            continue
+        idx = next((i for i in range(len(new_nodes) - 1, -1, -1)
+                    if new_nodes[i].name == nv), None)
+        if idx is None or new_nodes[idx].op != "qdense":
+            continue
+        cand = new_nodes[idx]
+        if cand.attrs.get("relu"):
+            continue  # relu(d) + r is not relu(d + r)
+        ratio = np.float32(s_mid / s_out)
+        for p in cand.params[1:3]:
+            new_params[p] = np.asarray(new_params[p] * ratio, np.float32)
+        attrs = dict(cand.attrs, out_scale=s_out, radd_scale=float(s_r / s_out),
+                     relu=has_relu)
+        new_nodes[idx] = Node(out_name, "qdense", (cand.inputs[0], r_new), cand.params, attrs)
+        val[out_name] = (out_name, s_out)
+        val[d_orig] = (out_name, s_out)
+        return True
+    return False
+
+
 def quantize_graph(graph: Graph, params: Mapping[str, np.ndarray],
                    act_scales: Mapping[str, float],
                    spec: QuantSpec | None = None) -> QuantizedArtifact:
@@ -70,10 +106,6 @@ def quantize_graph(graph: Graph, params: Mapping[str, np.ndarray],
     spec = spec or QuantSpec()
     graph.validate()
     consumers = graph.consumers()
-    for n in graph.nodes:
-        if n.op in _NOT_PORTED:
-            raise NotImplementedError(
-                f"quantizing op {n.op!r} (node {n.name!r}) is not ported")
     # every single-consumer concat input goes on the concat's own scale
     # (tf2_tpu's QuantSpec.equalize_concat, on by default there): the
     # branch producer's epilogue then writes int8 on the concat's grid and
@@ -190,19 +222,15 @@ def quantize_graph(graph: Graph, params: Mapping[str, np.ndarray],
             _, sa = val[node.inputs[0]]
             _, sb = val[node.inputs[1]]
             if sa is not None and sb is not None:
-                for d in node.inputs:
-                    prod = next((n for n in new_nodes if n.name == val[d][0]), None)
-                    if (prod is not None and prod.op == "qdense"
-                            and not prod.attrs.get("relu")
-                            and d not in graph.outputs
-                            and len(consumers.get(d, [])) == 1):
-                        raise NotImplementedError(
-                            f"folding residual add {node.name!r} into a qdense "
-                            "epilogue is not ported")
                 has_relu, out_name = relu_fusion(node)
                 s_out = float(act_scales[out_name])
                 a, _ = get_q8(node.inputs[0])
                 bq, _ = get_q8(node.inputs[1])
+                if spec.fold_residual and _fold_residual(
+                        node, graph, consumers, val, new_nodes, new_params,
+                        ((node.inputs[1], a, sa), (node.inputs[0], bq, sb)),
+                        out_name, s_out, has_relu):
+                    continue
                 new_nodes.append(Node(out_name, "qadd", (a, bq), (),
                                       {"sa": sa, "sb": sb, "so": s_out,
                                        "relu": has_relu}))
@@ -233,6 +261,53 @@ def quantize_graph(graph: Graph, params: Mapping[str, np.ndarray],
                     "bias": node.attrs.get("bias", 1.0),
                     "s_in": s_in, "s_out": s_out}))
                 val[node.name] = (node.name, s_out)
+                continue
+
+        if node.op == "attention_core":
+            nv, s_in = val[node.inputs[0]]
+            if s_in is not None:
+                # int8 QK^T and PV around an f32 softmax; the probabilities
+                # on the fixed scale 1/127 (kernels/qattention.py)
+                s_out = float(act_scales[node.name])
+                new_nodes.append(Node(node.name, "qattention_core", (nv,), (),
+                                      {"heads": node.attrs["heads"], "dim": node.attrs["dim"],
+                                       "s_in": s_in, "s_out": s_out}))
+                val[node.name] = (node.name, s_out)
+                continue
+
+        if spec.int8_residual and node.op in ("layer_norm", "gelu", "bias_add"):
+            nv, s_in = val[node.inputs[0]]
+            if s_in is not None and node.name in act_scales:
+                s_out = float(act_scales[node.name])
+                attrs = {"s_in": s_in, "s_out": s_out}
+                if node.op == "layer_norm":
+                    # normalizes the int8 codes (eps rescaled by 1/s_in^2)
+                    # and folds the affine into the requant
+                    for pname in node.params:
+                        add_param(pname, np.asarray(params[pname]))
+                    new_nodes.append(Node(node.name, "qlayernorm", (nv,), node.params,
+                                          {"eps": node.attrs.get("eps", 1e-6), **attrs}))
+                elif node.op == "gelu":
+                    new_nodes.append(Node(node.name, "qgelu", (nv,), (), attrs))
+                else:
+                    # the bias on the output grid: one multiply-add + requant
+                    b = np.asarray(params[node.params[0]], np.float32)
+                    p = add_param(f"{node.name}.bq", np.asarray(b / s_out, np.float32))
+                    new_nodes.append(Node(node.name, "qbias_add", (nv,), (p,), attrs))
+                val[node.name] = (node.name, s_out)
+                continue
+
+        if spec.int8_residual and node.op == "prepend_token":
+            nv, s_in = val[node.inputs[0]]
+            if s_in is not None:
+                # the class token quantized onto the stream's grid: the op
+                # itself is the same on int8
+                tok = np.asarray(params[node.params[0]], np.float32)
+                p = add_param(f"{node.name}.tq", np.clip(
+                    np.round(tok / s_in), -127, 127).astype(np.int8))
+                new_nodes.append(Node(node.name, "prepend_token", (nv,), (p,),
+                                      dict(node.attrs)))
+                val[node.name] = (node.name, s_in)
                 continue
 
         if node.op in _PASSTHROUGH:
