@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero before the last line:
              through the port's transform (init_params(seed=0), BN fold,
              W4-PoT quantize, synthetic activation scales), saved and
              loaded back as an artifact; Engines at batch 64 and 1 and on
-             the CPU at batch 1, each unfused and with block_fusion=True.
- 4. kernels  each of the four conv/GEMM kernels against its plain version
+             the CPU at batch 1: default, block_fusion=True,
+             phase_stem=True and optimize=True.
+ 4. kernels  each of the conv/GEMM kernels against its plain version
              on the card with 0 mismatches: every conv/dense node of the path
              at batch 64 and 1 on its real input, the same shapes with relu
              flipped on random inputs and with +-127 inputs on
@@ -20,9 +21,9 @@ Phases, in order; any failure exits non-zero before the last line:
              the GEMMs, bf16 F.conv2d for the convs) with CUDA events at
              the batch-64 shapes.
  5. main     Engine.run at batch 64 and 1 with launch counts per forward
-             (33 / 1 / 13 / 7 / 0 / 0 / 0), finite (B, 1000) logits, every node
-             equal to the plain path on the card and, at batch 1, to the
-             Engine on the CPU; Engine.benchmark img/s and latency.
+             (33 / 1 / 13 / 7 / 0 / 0 / 0 / 0 / 0), finite (B, 1000) logits,
+             every node equal to the plain path on the card and, at batch 1,
+             to the Engine on the CPU; Engine.benchmark img/s and latency.
  6. chains   Engine(block_fusion=True) at batch 64 and 1 from the same
              artifact: every qblockchain node against the plain chain with
              0 mismatches on its real input, with the adds' relu flipped,
@@ -30,10 +31,10 @@ Phases, in order; any failure exits non-zero before the last line:
              chain timed at batch 64 (kernel, plain, bound) and its kernel
              at batch 1.
  7. fused    Engine(block_fusion=True).run at batch 64 and 1: launch counts
-             per forward (6 / 1 / 0 / 7 / 4 / 0 / 0), every node equal to the
-             plain path and, at batch 1, to the fused Engine on the CPU;
-             logits equal to phase 5's bit for bit; Engine.benchmark beside
-             it.
+             per forward (6 / 1 / 0 / 7 / 4 / 0 / 0 / 0 / 0), every node
+             equal to the plain path and, at batch 1, to the fused Engine on
+             the CPU; logits equal to phase 5's bit for bit;
+             Engine.benchmark beside it.
  8. googlenet full-width GoogLeNet (224x224, 1000 classes, two LRNs): the
              artifact round trip, Engines at batch 64 and 1 and on the CPU
              at batch 1, default and with merge_1x1=True. Every conv and
@@ -45,15 +46,16 @@ Phases, in order; any failure exits non-zero before the last line:
              beta 0.75, 0.5, 0.6 and 1.0, and on ragged shapes (odd M,
              C = 13, C < 2r + 1, M = 1), all with 0 mismatches; qlrn timed
              at batch 64 (kernel, plain, bound, F.local_response_norm as
-             the yardstick). Then both Engines as in phase 5: launch counts
-             per forward (37 / 1 / 19 / 1 / 0 / 2 / 0 default,
-             10 / 10 / 19 / 1 / 0 / 2 / 0 merged), every node equal to the
-             plain path and at batch 1 to the CPU Engine, merged logits
-             equal to the default's bit for bit, Engine.benchmark.
+             the yardstick); its stem as in phase 12. Then both Engines as
+             in phase 5: launch counts per forward
+             (37 / 1 / 19 / 1 / 0 / 2 / 0 / 0 / 0 default,
+             10 / 10 / 19 / 1 / 0 / 2 / 0 / 0 / 0 merged), every node equal
+             to the plain path and at batch 1 to the CPU Engine, merged
+             logits equal to the default's bit for bit, Engine.benchmark.
  9. squeezenet  the same for SqueezeNet v1.1, which has no LRN: launch
-             counts 16 / 1 / 8 / 1 / 0 / 0 / 0 default and
-             12 / 1 / 8 / 1 / 0 / 0 / 0 merged (fires 2-5 merge e1x1 into an
-             int8 3x3).
+             counts 16 / 1 / 8 / 1 / 0 / 0 / 0 / 0 / 0 default and
+             12 / 1 / 8 / 1 / 0 / 0 / 0 / 0 / 0 merged (fires 2-5 merge
+             e1x1 into an int8 3x3).
 10. vit      full-width ViT-B/16 (224x224, 1000 classes, depth 12, dim 768,
              12 heads) at W8 with the int8 residual stream, vit_b16 (T = 196)
              then vit_b16_cls (T = 197): the artifact (the position
@@ -69,15 +71,49 @@ Phases, in order; any failure exits non-zero before the last line:
              timed at batch 64 (kernel, plain, bound,
              F.scaled_dot_product_attention on the dequantized bf16 q, k, v
              as the yardstick). Then both Engines as in phase 5: launch
-             counts 0 / 50 / 0 / 0 / 0 / 0 / 12 a forward, every node equal
-             to the plain path and at batch 1 to the CPU Engine, finite
-             (B, 1000) logits, Engine.benchmark.
+             counts 0 / 50 / 0 / 0 / 0 / 0 / 12 / 0 / 0 a forward, every
+             node equal to the plain path and at batch 1 to the CPU Engine,
+             finite (B, 1000) logits, Engine.benchmark.
+11. stem Engines  (after phase 7) ResNet-50's Engine(phase_stem=True) and
+             Engine(optimize=True) as phases 4-5: every conv node against
+             its plain version (the space-to-depth stem a 4x4 stride-1 conv
+             on 12 channels), launch counts 33 / 1 / 13 / 6 / 0 / 0 / 0 / 1
+             / 0 and 33 / 1 / 14 / 6 / 0 / 0 / 0 / 0 / 0, every node equal to
+             the plain path and at batch 1 to the CPU Engine, logits equal to
+             phase 5's bit for bit, Engine.benchmark.
+12. stems    for each model's stem (ResNet-50 here, then inside phases 8, 9
+             and 13) at batch 64 and 1: fused_qstem on the f32 image and the
+             stem's real weights, eff_scale, eff_bias and s_in, its
+             launches counted from 0 (one qstem launch), its output equal to
+             the Engine's stem node and to qstem_plain, then on the int8
+             image, relu on and off, and +-127; the wpack2 node (the conv
+             kernel's stride-(2, 1) entry) equal to the Engine's stem node
+             and to its plain version, on random and +-127 packed inputs;
+             the space-to-depth route equal to the Engine's stem node. The
+             four routes timed side by side (the whole stem node and its
+             kernel alone) beside bf16 F.conv2d and the byte bound; qstem
+             and the stride-(2, 1) conv timed at ResNet-50's b64 stem into
+             the kernels line. Then ragged stems (k 5 and 1, odd H and W,
+             cin 1, 2, 4, cout 130, batch 3) and ragged packed convs.
+13. ssd      full-width SSD (256x256, 21 classes, 1,008 priors, W4-PoT)
+             under both score cases (random and background-dominated,
+             tf2_tpu_torch/bench/ssd_cases.py): the artifact round trip,
+             Engines at batch 64 and 1 and on the CPU at batch 1, every conv
+             node against its plain version, its stem as in phase 12, then
+             as in phase 5 with (B, 100, 6) detections: launch counts
+             0 / 0 / 8 / 6 / 0 / 0 / 0 / 0 / 0, every node equal to the
+             plain path and at batch 1 to the CPU Engine (the detections
+             too), Engine.benchmark.
 Launch counts are in the order (qmatmul_pot4, qmatmul_int8, qconv_s1,
-qconv_s2, qblockchain, qlrn, qattention). Prints the kernels JSON line
-(launches: qblockchain's from phase 7, qlrn's from phase 8, qattention's
-from phase 10, the others' from phase 5; times at ResNet-50's shapes,
-qlrn's at GoogLeNet's, qattention's at vit_b16's), the card line and, last,
-the contract line; the per-shape timings go to stderr as one JSON line.
+qconv_s2, qblockchain, qlrn, qattention, qconv_s2x1, qstem). Prints the
+summary line (every path's numbers, the stem routes, the run's wall time),
+the kernels JSON line (launches: qblockchain's from phase 7, qconv_s2x1's
+from phase 11's phase_stem Engine, qstem's from the b64 fused_qstem call on
+ResNet-50's stem (no Engine routes to it), qlrn's from phase 8,
+qattention's from phase 10, the others' from phase 5; times at ResNet-50's
+shapes, qlrn's at GoogLeNet's, qattention's at vit_b16's), the card line
+and, last, the contract line; the per-shape timings go to stderr as one
+JSON line.
 """
 from __future__ import annotations
 
@@ -106,6 +142,11 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "qlrn": ("tf2_tpu_torch/kernels/csrc/qlrn.cu", "tf2_tpu/kernels/qlrn.py:66"),
     "qattention": ("tf2_tpu_torch/kernels/csrc/qattention.cu",
                    "tf2_tpu/kernels/qattention.py:42"),
+    # the wpack2 stem's stride-(2, 1) conv, which the reference runs as a
+    # bf16 lax conv in XLA, not in Pallas
+    "qconv_s2x1": ("tf2_tpu_torch/kernels/csrc/qconv.cu",
+                   "tf2_tpu/kernels/dispatch.py:154 (wpack2 conv, XLA not Pallas)"),
+    "qstem": ("tf2_tpu_torch/kernels/csrc/qstem.cu", "tf2_tpu/kernels/qstem.py:144"),
 }
 KERNEL_NAMES = tuple(KERNELS)
 
@@ -115,16 +156,26 @@ def _launches(*counts):
 
 
 # launches a forward: (pot4 GEMM, int8 GEMM, conv s1, conv s2, chain, qlrn,
-# attention)
-EXPECTED_LAUNCHES = _launches(33, 1, 13, 7, 0, 0, 0)
-FUSED_LAUNCHES = _launches(6, 1, 0, 7, 4, 0, 0)
-ZOO_LAUNCHES = {  # model -> {merge_1x1: launches}
-    "googlenet": {False: _launches(37, 1, 19, 1, 0, 2, 0),
-                  True: _launches(10, 10, 19, 1, 0, 2, 0)},
-    "squeezenet_v1_1": {False: _launches(16, 1, 8, 1, 0, 0, 0),
-                        True: _launches(12, 1, 8, 1, 0, 0, 0)},
+# attention, conv s2x1, stem)
+EXPECTED_LAUNCHES = _launches(33, 1, 13, 7, 0, 0, 0, 0, 0)
+FUSED_LAUNCHES = _launches(6, 1, 0, 7, 4, 0, 0, 0, 0)
+STEM_LAUNCHES = {"phase_stem": _launches(33, 1, 13, 6, 0, 0, 0, 1, 0),
+                 "optimize": _launches(33, 1, 14, 6, 0, 0, 0, 0, 0)}
+RESNET_OPTIONS = {"default": {}, "block_fusion": {"block_fusion": True},
+                  "phase_stem": {"phase_stem": True}, "optimize": {"optimize": True}}
+ZOO_OPTIONS = {"default": {}, "merge_1x1": {"merge_1x1": True}}
+ZOO_LAUNCHES = {  # model -> {option: launches}
+    "googlenet": {"default": _launches(37, 1, 19, 1, 0, 2, 0, 0, 0),
+                  "merge_1x1": _launches(10, 10, 19, 1, 0, 2, 0, 0, 0)},
+    "squeezenet_v1_1": {"default": _launches(16, 1, 8, 1, 0, 0, 0, 0, 0),
+                        "merge_1x1": _launches(12, 1, 8, 1, 0, 0, 0, 0, 0)},
 }
-VIT_LAUNCHES = _launches(0, 50, 0, 0, 0, 0, 12)
+VIT_LAUNCHES = _launches(0, 50, 0, 0, 0, 0, 12, 0, 0)
+SSD_LAUNCHES = _launches(0, 0, 8, 6, 0, 0, 0, 0, 0)
+# ragged stems: (b, h, w, cin, cout, k, padding)
+RAGGED_STEMS = [(3, 37, 41, 1, 16, 5, "SAME"), (3, 33, 19, 2, 24, 5, "VALID"),
+                (1, 30, 30, 4, 130, 7, "SAME"), (3, 45, 31, 3, 64, 7, "SAME"),
+                (2, 9, 7, 3, 8, 1, "SAME")]
 # (s_in, s_out) for qattention on random qkv: the softmax from flat to peaked
 ATTN_SCALES = [(0.005, 0.01), (0.02, 0.05), (0.1, 0.05)]
 # (s_in, s_out, alpha) for qlrn on random inputs: the synthetic scales keep
@@ -172,16 +223,14 @@ def phase_build():
             log(report.read_text().strip())
 
 
-def phase_artifact(name: str, option: str, **kwargs):
-    """The model's synthetic artifact, saved and loaded back; Engines at
-    batch 64 and 1 and on the CPU at batch 1, each with ``option`` (an
-    Engine flag) off and on. -> (engines[flag][batch], cpu_engines[flag])."""
+def load_round_trip(name: str, image: int = 224, classes: int = 1000, **kwargs):
+    """The model's synthetic artifact at batch 64, saved and loaded back
+    (the graph and every tensor must come back as they were). -> (graph,
+    params, MB)."""
     from tf2_tpu_torch.models import synthetic_quantized
-    from tf2_tpu_torch.runtime import Engine
     from tf2_tpu_torch.transform import load_artifact, save_artifact
 
-    t = time.time()
-    art = synthetic_quantized(name, seed=0, batch=64, image=224, classes=1000, **kwargs)
+    art = synthetic_quantized(name, seed=0, batch=64, image=image, classes=classes, **kwargs)
     with tempfile.TemporaryDirectory() as d:
         save_artifact(d, art.graph, art.params)
         graph, params = load_artifact(d)
@@ -190,13 +239,29 @@ def phase_artifact(name: str, option: str, **kwargs):
     for k, v in art.params.items():
         if not np.array_equal(params[k], v):
             raise RuntimeError(f"{name}: artifact round trip changed {k}")
+    return graph, params, art.size_bytes() / 1e6
+
+
+def make_engines(graph, params, options):
+    """Engines at batch 64 and 1 and on the CPU at batch 1 for each of
+    ``options`` (label -> Engine flags). -> (engines[label][batch],
+    cpu_engines[label])."""
+    from tf2_tpu_torch.runtime import Engine
+
     engines, cpu_engines = {}, {}
-    for flag in (False, True):
-        engines[flag] = {b: Engine(graph.with_batch_size(b), params, **{option: flag})
-                         for b in (64, 1)}
-        cpu_engines[flag] = Engine(graph.with_batch_size(1), params, device="cpu",
-                                   **{option: flag})
-    log(f"artifact {name}: {len(params)} tensors, {art.size_bytes() / 1e6:.1f} MB, "
+    for label, flags in options.items():
+        engines[label] = {b: Engine(graph.with_batch_size(b), params, **flags) for b in (64, 1)}
+        cpu_engines[label] = Engine(graph.with_batch_size(1), params, device="cpu", **flags)
+    return engines, cpu_engines
+
+
+def phase_artifact(name: str, options, **kwargs):
+    """The model's artifact round trip and its Engines for each of
+    ``options``. -> (engines[label][batch], cpu_engines[label])."""
+    t = time.time()
+    graph, params, mb = load_round_trip(name, **kwargs)
+    engines, cpu_engines = make_engines(graph, params, options)
+    log(f"artifact {name}: {len(params)} tensors, {mb:.1f} MB, "
         f"transform + save + load + engines {time.time() - t:.1f} s")
     return engines, cpu_engines
 
@@ -578,13 +643,6 @@ class KernelStats:
         library = _library(node, params, x_q)
         library_ms = cuda_ms(library, 20) if library else None
         bytes_ms, ops_ms = _bound_ms(node, params, x_q, y)
-        if total:
-            s = self.k[kernel]
-            s["ms"] += ms * mult
-            s["plain_ms"] += plain_ms * mult
-            s["library_ms"] = None if library_ms is None else s["library_ms"] + library_ms * mult
-            s["bound_ms"] += max(bytes_ms, ops_ms) * mult
-            s["bytes_bound_ms"] += bytes_ms * mult if bytes_ms >= ops_ms else 0.0
         if node.op == "qblockchain":
             shape = {"blocks": len(node.attrs["blocks"]),
                      "cm": [blk["cm"] for blk in node.attrs["blocks"]]}
@@ -595,9 +653,21 @@ class KernelStats:
         else:
             shape = {"kshape": node.attrs["kshape"], "strides": node.attrs.get("strides"),
                      "wfmt": node.attrs["wfmt"], "residual": isinstance(x_q, tuple)}
-        self.rows.append({"kernel": kernel, "node": node.name, "count": mult,
-                          "x": list(_main_input(x_q).shape), **shape,
-                          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        self.add(kernel, {"node": node.name, "x": list(_main_input(x_q).shape), **shape},
+                 ms, plain_ms, library_ms, bytes_ms, ops_ms, mult, total)
+
+    def add(self, kernel, row, ms, plain_ms, library_ms, bytes_ms, ops_ms, mult, total=True):
+        """A row of the per-shape table; with ``total``, ``mult`` times into
+        the kernels line."""
+        if total:
+            s = self.k[kernel]
+            s["ms"] += ms * mult
+            s["plain_ms"] += plain_ms * mult
+            s["library_ms"] = None if library_ms is None else s["library_ms"] + library_ms * mult
+            s["bound_ms"] += max(bytes_ms, ops_ms) * mult
+            s["bytes_bound_ms"] += bytes_ms * mult if bytes_ms >= ops_ms else 0.0
+        self.rows.append({"kernel": kernel, "count": mult, **row, "ms": ms,
+                          "plain_ms": plain_ms, "library_ms": library_ms,
                           "bytes_ms": bytes_ms, "ops_ms": ops_ms})
 
 
@@ -619,8 +689,8 @@ def phase_kernels(engines, images, stats, timed: bool, total: bool = True):
         plain_envs[b] = env
         groups: dict[str, list] = {}
         for node in eng.graph.nodes:
-            if node.op not in ("qconv2d", "qdense"):
-                continue
+            if node.op not in ("qconv2d", "qdense") or node.attrs.get("wfmt") == "wpack2":
+                continue  # the wpack2 stem: phase_stems
             x = env[node.inputs[0]]
             if "s_in" in node.attrs:
                 x = dispatch.quantize(x, node.attrs["s_in"])
@@ -736,12 +806,14 @@ def phase_chains(engines, images, stats):
     return plain_envs
 
 
-def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as=None):
+def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as=None,
+               out_shape=(1000,)):
     """A path through Engine.run: launch counts per forward must equal
-    ``expected``; returns (launches per b64 forward, summary, logits by
-    batch). At batch 1 every node and the logits must also equal the
-    Engine on the CPU, whose plain path the CPU tests hold against
-    tf2_tpu; with ``same_as`` the logits must equal those bit for bit."""
+    ``expected``; returns (launches per b64 forward, summary, outputs by
+    batch). The outputs must be finite, (B, *out_shape). At batch 1 every
+    node and the outputs must also equal the Engine on the CPU, whose plain
+    path the CPU tests hold against tf2_tpu; with ``same_as`` the outputs
+    must equal those bit for bit."""
     from tf2_tpu_torch import kernels
     from tf2_tpu_torch.graph import execute
 
@@ -756,10 +828,10 @@ def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as
         if b == 64:
             launches = counts
         all_logits[b] = logits
-        if (tuple(logits.shape) != (len(images[b]), 1000)
+        if (tuple(logits.shape) != (len(images[b]), *out_shape)
                 or not bool(torch.isfinite(logits).all())):
-            raise RuntimeError(f"{label} b{b}: logits {tuple(logits.shape)} "
-                               "not finite (B, 1000)")
+            raise RuntimeError(f"{label} b{b}: outputs {tuple(logits.shape)} "
+                               f"not finite (B, {out_shape})")
         if same_as is not None and not torch.equal(logits, same_as[b]):
             raise RuntimeError(f"{label} b{b}: logits differ from the default Engine's")
         _, env = execute(eng.graph, intermediates=True)(eng.params, image=images[b])
@@ -793,19 +865,22 @@ def phase_zoo(name, images, stats):
     """Phases 8 and 9: the model's artifact and Engines, default and with
     merge_1x1=True; every conv and dense node of both graphs against its
     plain version (untimed: the kernels line times them on ResNet-50's
-    path); GoogLeNet's qlrn nodes (phase_qlrn); both Engines through
-    phase_main, the merged logits equal to the default's bit for bit.
-    Returns (launches per b64 forward of the default Engine, summary)."""
-    engines, cpu_engines = phase_artifact(name, "merge_1x1")
-    envs = phase_kernels(engines[False], images, stats, timed=False)
-    if any(n.op == "qlrn" for n in engines[False][64].graph.nodes):
-        phase_qlrn(engines[False], envs, stats)
-    launches, summary, logits = phase_main(name, engines[False], cpu_engines[False], images,
-                                           envs, ZOO_LAUNCHES[name][False])
-    merged_envs = phase_kernels(engines[True], images, stats, timed=False)
-    _, summary["merge_1x1"], _ = phase_main(f"{name} merge_1x1", engines[True],
-                                            cpu_engines[True], images, merged_envs,
-                                            ZOO_LAUNCHES[name][True], same_as=logits)
+    path); GoogLeNet's qlrn nodes (phase_qlrn); the stem routes
+    (phase_stems); both Engines through phase_main, the merged logits
+    equal to the default's bit for bit. Returns (launches per b64 forward
+    of the default Engine, summary)."""
+    engines, cpu_engines = phase_artifact(name, ZOO_OPTIONS)
+    envs = phase_kernels(engines["default"], images, stats, timed=False)
+    if any(n.op == "qlrn" for n in engines["default"][64].graph.nodes):
+        phase_qlrn(engines["default"], envs, stats)
+    _, routes = phase_stems(name, engines["default"], cpu_engines["default"], images, stats)
+    launches, summary, logits = phase_main(name, engines["default"], cpu_engines["default"],
+                                           images, envs, ZOO_LAUNCHES[name]["default"])
+    summary["stem_routes"] = routes
+    merged_envs = phase_kernels(engines["merge_1x1"], images, stats, timed=False)
+    _, summary["merge_1x1"], _ = phase_main(f"{name} merge_1x1", engines["merge_1x1"],
+                                            cpu_engines["merge_1x1"], images, merged_envs,
+                                            ZOO_LAUNCHES[name]["merge_1x1"], same_as=logits)
     log(f"{name}: kernels " + ", ".join(f"{k} {v['checks']} checks" for k, v in stats.k.items()))
     return launches, summary
 
@@ -919,24 +994,297 @@ def phase_vit(name, images, stats):
     return launches, summary
 
 
+def _stem_pieces(cpu_engine, dev):
+    """The model's stem (its first conv: stride 2, cin 3, the input
+    quantize fused in) and the other routes' nodes for it, from the CPU
+    Engine's graph: the wpack2 node (pack_phase_stem) and the pad,
+    space_to_depth and conv nodes of space_to_depth_stem (None where that
+    pass skips the stem: SqueezeNet's VALID one). -> (stem, packed, packed
+    params, s2d nodes, s2d conv params), params on ``dev``."""
+    from tf2_tpu_torch.graph.optimize import pack_phase_stem, space_to_depth_stem
+
+    params = {k: v.numpy() for k, v in cpu_engine.params.items()}
+    stem = next(n for n in cpu_engine.graph.nodes if n.op == "qconv2d")
+    pg, pp = pack_phase_stem(cpu_engine.graph, params)
+    packed = pg.node_map()[stem.name]
+    if packed.attrs.get("wfmt") != "wpack2":
+        raise RuntimeError(f"{stem.name}: pack_phase_stem did not pack the stem")
+    sg, sp = space_to_depth_stem(cpu_engine.graph, params)
+    nodes = sg.node_map()
+    s2d = [nodes[f"{stem.name}__s2d_pad"], nodes[f"{stem.name}__s2d"], nodes[stem.name]] \
+        if f"{stem.name}__s2d" in nodes else None
+
+    def on_dev(p, names):
+        return {k: torch.as_tensor(p[k]).to(dev) for k in names}
+
+    return (stem, packed, on_dev(pp, packed.params), s2d,
+            on_dev(sp, s2d[2].params) if s2d else None)
+
+
+def _stem_adversarial(rng, x_q, w_q, extreme: bool):
+    """+-127 inputs on +-127 weights; ``extreme``: all +127, es placing the
+    largest sum just inside the int8 range; otherwise random signs, es
+    large enough that outputs clip at both ends. -> (x, w, es)."""
+    kh, kw, cin, cout = w_q.shape
+    k = kh * kw * cin
+    if extreme:
+        x, w = torch.full_like(x_q, 127), torch.full_like(w_q, 127)
+        scale = rng.uniform(0.2, 0.99, cout)
+    else:
+        x, w = _random_pm127(rng, x_q), _random_pm127(rng, w_q)
+        scale = rng.uniform(0.5, 8.0, cout) * np.sqrt(k)
+    return x, w, torch.as_tensor((scale / (127 * k)).astype(np.float32)).to(x_q.device)
+
+
+def _bf16_conv(x, w_q, strides, padding):
+    """bf16 F.conv2d of ``x`` NHWC and HWIO ``w_q``, channels-last: a
+    yardstick time only."""
+    import torch.nn.functional as F
+
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wb = w_q.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    return lambda: F.conv2d(xb, wb, stride=strides, padding=padding)
+
+
+def phase_stems(name, engines, cpu_engine, images, stats, timed=False):
+    """Phase 12 for one model's stem, at batch 64 and 1. fused_qstem (the
+    entry) on the f32 image and the stem's real weights, eff_scale,
+    eff_bias and s_in, its launches counted from 0 (one, the qstem kernel);
+    its output equal to the Engine's stem node (quantize + the stride-2 conv
+    kernel) and to qstem_plain, then on the quantized int8 image, relu on
+    and off, and +-127; the wpack2 node (the conv kernel's stride-(2, 1)
+    entry) equal to the Engine's stem node and to its plain version, on
+    random and +-127 packed inputs; the space_to_depth route equal to the
+    Engine's stem node. Times the four routes (the whole node and its
+    kernel alone) and bf16 F.conv2d; with ``timed`` (ResNet-50), qstem and
+    the stride-(2, 1) conv at batch 64 into the kernels line. -> (launch
+    counts of the b64 fused_qstem call, route times by batch)."""
+    from tf2_tpu_torch import kernels
+    from tf2_tpu_torch.graph.execute import _OP_IMPLS
+    from tf2_tpu_torch.kernels import dispatch, qconv, qstem
+
+    rng = np.random.default_rng(7)
+    dev = images[1].device
+    stem, packed, pparams, s2d, sparams = _stem_pieces(cpu_engine, dev)
+    kh, kw, cin, cout = stem.attrs["kshape"]
+    s_in, relu, padding = stem.attrs["s_in"], stem.attrs["relu"], stem.attrs["padding"]
+    pk = dict(kshape=tuple(packed.attrs["pack_kshape"]), wfmt="int8",
+              pads=(tuple(packed.attrs["pack_pad_h"]), (0, 0)))
+    wp = pparams[packed.params[0]]
+
+    def s2d_route(x):
+        pad, space, conv = s2d
+        xs = _OP_IMPLS["space_to_depth"][0](space, {}, _OP_IMPLS["pad"][0](pad, {}, x))
+        return dispatch.qconv2d(conv, sparams, xs)
+
+    launches, routes = None, {}
+    for b, eng in engines.items():
+        x = images[b]
+        w_q, es, eb = (eng.params[p] for p in stem.params)
+        w_q = w_q.reshape(kh, kw, cin, cout)
+        kernels.reset_launch_counts()
+        y = qstem.fused_qstem(x, w_q, es, eb, padding=padding, relu=relu, scale=s_in)
+        counts = kernels.launch_counts()
+        if counts != {**dict.fromkeys(counts, 0), "qstem": 1}:
+            raise RuntimeError(f"{name} b{b}: fused_qstem launched {counts}")
+        launches = counts if b == 64 else launches
+        want = dispatch.qconv2d(stem, eng.params, x)  # the Engine's stem node
+        stats.check("qstem", f"{name} b{b} against the Engine's stem node", y, want)
+        x_q = dispatch.quantize(x, s_in)
+        for r, (xin, scale) in itertools.product((relu, not relu), ((x, s_in), (x_q, None))):
+            kw_ = dict(padding=padding, relu=r, scale=scale)
+            stats.check("qstem", f"{name} b{b} relu={r} scale={scale}",
+                        qstem.fused_qstem(xin, w_q, es, eb, **kw_),
+                        qstem.fused_qstem(xin, w_q, es, eb, plain=True, **kw_))
+        for extreme in (True, False):
+            xa, wa, esa = _stem_adversarial(rng, x_q, w_q, extreme)
+            kw_ = dict(padding=padding, relu=relu)
+            stats.check("qstem", f"{name} b{b} +-127 extreme={extreme}",
+                        qstem.fused_qstem(xa, wa, esa, eb, **kw_),
+                        qstem.fused_qstem(xa, wa, esa, eb, plain=True, **kw_))
+        # the wpack2 stem and its stride-(2, 1) conv
+        y2 = dispatch.qconv2d(packed, pparams, x)
+        stats.check("qconv_s2x1", f"{name} b{b} wpack2 against the Engine's stem node", y2, want)
+        stats.check("qconv_s2x1", f"{name} b{b} wpack2 node", y2,
+                    dispatch.qconv2d(packed, pparams, x, plain=True))
+        xp = dispatch.pack_w_pairs(x_q, packed.attrs["pack_pad_w"])
+        xr = _random_like(rng, xp)
+        stats.check("qconv_s2x1", f"{name} b{b} random, relu flipped",
+                    qconv.qconv_s2x1(xr, wp, es, eb, relu=not relu, **pk),
+                    qconv.qconv_plain(xr, wp, es, eb, strides=(2, 1), relu=not relu, **pk))
+        for extreme in (True, False):
+            xa, wa, esa = _stem_adversarial(rng, xp, wp, extreme)
+            stats.check("qconv_s2x1", f"{name} b{b} +-127 extreme={extreme}",
+                        qconv.qconv_s2x1(xa, wa, esa, eb, relu=relu, **pk),
+                        qconv.qconv_plain(xa, wa, esa, eb, strides=(2, 1), relu=relu, **pk))
+        if s2d:
+            stats.check("qconv_s1", f"{name} b{b} space_to_depth against the Engine's stem node",
+                        s2d_route(x), want)
+        # the routes side by side: the whole stem node, and its kernel alone
+        n = 20 if b == 64 else 100
+        pads = qconv.resolve_pads(padding, kh, kw, 2, 2, x.shape[1], x.shape[2])
+        wmat = qstem.fold_weight(w_q)
+        r = {"conv_s2": (lambda: dispatch.qconv2d(stem, eng.params, x),
+                         lambda: qconv.qconv_s2(x_q, w_q, es, eb, kshape=(kh, kw, cin, cout),
+                                                pads=pads, relu=relu, wfmt="int8")),
+             "wpack2": (lambda: dispatch.qconv2d(packed, pparams, x),
+                        lambda: qconv.qconv_s2x1(xp, wp, es, eb, relu=relu, **pk)),
+             "qstem": (lambda: qstem.fused_qstem(x, w_q, es, eb, padding=padding, relu=relu,
+                                                 scale=s_in),
+                       lambda: qstem.qstem(x, wmat, es, eb, kh=kh, kw=kw, padding=padding,
+                                           relu=relu, scale=s_in))}
+        if s2d:
+            conv = s2d[2]
+            xs_q = dispatch.quantize(_OP_IMPLS["space_to_depth"][0](
+                s2d[1], {}, _OP_IMPLS["pad"][0](s2d[0], {}, x)), s_in)
+            r["space_to_depth"] = (lambda: s2d_route(x), lambda: qconv.qconv_s1(
+                xs_q, sparams[conv.params[0]], es, eb, kshape=tuple(conv.attrs["kshape"]),
+                pads=((0, 0), (0, 0)), relu=relu, wfmt="int8"))
+        routes[f"b{b}"] = {k: {"node_ms": cuda_ms(node_fn, n), "kernel_ms": cuda_ms(kernel_fn, n)}
+                           for k, (node_fn, kernel_fn) in r.items()}
+        routes[f"b{b}"]["bf16_conv2d_ms"] = cuda_ms(_bf16_conv(
+            x, w_q, 2, kh // 2 if padding == "SAME" else 0), n)
+        routes[f"b{b}"]["bytes_bound_ms"] = (x.numel() * 4 + y.numel()) / H100_BYTES_PER_S * 1e3
+        log(f"{name} stem routes b{b}: {json.dumps(routes[f'b{b}'])}")
+        if timed and b == 64:
+            _time_stem_kernels(stats, x, wmat, w_q, es, eb, y, stem, xp, wp, pk, y2)
+    stats.raise_on_mismatch(f"{name}: the stem kernels disagree with their plain versions")
+    return launches, routes
+
+
+def _time_stem_kernels(stats, x, wmat, w_q, es, eb, y, stem, xp, wp, pk, y2):
+    """qstem and the stride-(2, 1) conv at the ResNet-50 b64 stem into the
+    kernels line (one launch a forward each), beside their plain versions,
+    bf16 F.conv2d and their bounds: qstem reads the f32 image, the folded
+    weight, es and eb once and writes the int8 output once, 2 operations a
+    multiply-accumulate inside the image; the packed conv reads the packed
+    int8 image (its W pads included) instead."""
+    from tf2_tpu_torch.kernels import qconv, qstem
+
+    kh, kw, cin, cout = stem.attrs["kshape"]
+    s_in, relu, padding = stem.attrs["s_in"], stem.attrs["relu"], stem.attrs["padding"]
+    b, h, w, _ = x.shape
+    (ph0, _), (pw0, _) = qconv.resolve_pads(padding, kh, kw, 2, 2, h, w)
+    _, taps_y = _taps(h, kh, 2, ph0, y.shape[1])
+    _, taps_x = _taps(w, kw, 2, pw0, y.shape[2])
+    kwq = dict(kh=kh, kw=kw, padding=padding, relu=relu, scale=s_in)
+    stats.add("qstem", {"node": stem.name, "x": list(x.shape), "kshape": [kh, kw, cin, cout]},
+              cuda_ms(lambda: qstem.qstem(x, wmat, es, eb, **kwq), 20),
+              cuda_ms(lambda: qstem.qstem_plain(x, wmat, es, eb, **kwq), 3),
+              cuda_ms(_bf16_conv(x, w_q, 2, kh // 2 if padding == "SAME" else 0), 20),
+              (x.numel() * 4 + wmat.numel() + 8 * cout + y.numel()) / H100_BYTES_PER_S * 1e3,
+              2.0 * b * taps_y * taps_x * cin * cout / H100_INT8_OPS_PER_S * 1e3, 1)
+    pkh, pkw, pcin, _ = pk["kshape"]
+    (lo_h, _), _ = pk["pads"]
+    _, taps_y = _taps(h, pkh, 2, lo_h, y2.shape[1])
+    _, taps_x = _taps(xp.shape[2], pkw, 1, 0, y2.shape[2])
+    stats.add("qconv_s2x1", {"node": stem.name, "x": list(xp.shape), "kshape": list(pk["kshape"]),
+                             "strides": [2, 1], "wfmt": "int8"},
+              cuda_ms(lambda: qconv.qconv_s2x1(xp, wp, es, eb, relu=relu, **pk), 20),
+              cuda_ms(lambda: qconv.qconv_plain(xp, wp, es, eb, strides=(2, 1), relu=relu, **pk), 3),
+              cuda_ms(_bf16_conv(xp, wp, (2, 1), (lo_h, 0)), 20),
+              (xp.numel() + wp.numel() + 8 * cout + y2.numel()) / H100_BYTES_PER_S * 1e3,
+              2.0 * b * taps_y * taps_x * pcin * cout / H100_INT8_OPS_PER_S * 1e3, 1)
+
+
+def phase_ragged_stems(stats, dev):
+    """The stem kernel off the zoo's shapes (k 5 and 1, odd H and W, cin 1,
+    2 and 4, cout 130, batch 3) on f32 and int8 input, relu on and off; the
+    stride-(2, 1) conv on ragged packed inputs."""
+    from tf2_tpu_torch.kernels import qconv, qstem
+
+    rng = np.random.default_rng(9)
+    for b, h, w, cin, cout, k, padding in RAGGED_STEMS:
+        w_q = torch.as_tensor(rng.integers(-127, 128, (k, k, cin, cout), dtype=np.int8)).to(dev)
+        es = torch.as_tensor((rng.uniform(0.5, 4.0, cout) / (127 * np.sqrt(k * k * cin)))
+                             .astype(np.float32)).to(dev)
+        eb = torch.as_tensor(rng.normal(0, 20, cout).astype(np.float32)).to(dev)
+        xf = torch.as_tensor(rng.standard_normal((b, h, w, cin), dtype=np.float32)).to(dev)
+        xq = torch.as_tensor(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)).to(dev)
+        for relu, (xin, scale) in itertools.product((False, True), ((xf, 0.013), (xq, None))):
+            kw_ = dict(padding=padding, relu=relu, scale=scale)
+            stats.check("qstem", f"ragged {b}x{h}x{w}x{cin} k{k} {padding} -> {cout} {kw_}",
+                        qstem.fused_qstem(xin, w_q, es, eb, **kw_),
+                        qstem.fused_qstem(xin, w_q, es, eb, plain=True, **kw_))
+    for b, h, w, cin, cout, kh, kw, pads in [(3, 17, 9, 2, 40, 5, 3, ((2, 2), (0, 0))),
+                                             (2, 63, 32, 6, 64, 3, 2, ((0, 0), (0, 0))),
+                                             (1, 31, 16, 8, 72, 7, 4, ((3, 3), (0, 0)))]:
+        x = torch.as_tensor(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)).to(dev)
+        wq = torch.as_tensor(rng.integers(-127, 128, (kh, kw, cin, cout), dtype=np.int8)).to(dev)
+        es = torch.as_tensor(rng.uniform(1e-5, 1e-3, cout).astype(np.float32)).to(dev)
+        eb = torch.as_tensor(rng.standard_normal(cout).astype(np.float32)).to(dev)
+        for relu in (False, True):
+            kw_ = dict(kshape=(kh, kw, cin, cout), pads=pads, relu=relu, wfmt="int8")
+            stats.check("qconv_s2x1", f"ragged {b}x{h}x{w}x{cin} {kh}x{kw} relu={relu}",
+                        qconv.qconv_s2x1(x, wq, es, eb, **kw_),
+                        qconv.qconv_plain(x, wq, es, eb, strides=(2, 1), **kw_))
+    stats.raise_on_mismatch("the stem kernels disagree with their plain versions off the zoo")
+    log(f"stems: qstem {stats.k['qstem']['checks']} checks, qconv_s2x1 "
+        f"{stats.k['qconv_s2x1']['checks']} checks")
+
+
+def phase_ssd(stats):
+    """Phase 13: full-width SSD (256x256, 21 classes, 1,008 priors, W4-PoT)
+    under both score cases (tf2_tpu_torch/bench/ssd_cases.py): the artifact
+    round trip, Engines at batch 64 and 1 and on the CPU at batch 1; every
+    conv node against its plain version; the stem routes (phase_stems);
+    phase_main with (B, 100, 6) detections. Returns the summary."""
+    from tf2_tpu_torch.bench.ssd_cases import CASES, case_params
+
+    t = time.time()
+    graph, params, mb = load_round_trip("ssd", image=256, classes=21)
+    log(f"artifact ssd: {len(params)} tensors, {mb:.1f} MB, transform + save + load "
+        f"{time.time() - t:.1f} s")
+    rng = np.random.default_rng(8)
+    images = {b: torch.as_tensor(rng.standard_normal((b, 256, 256, 3), dtype=np.float32)).cuda()
+              for b in (64, 1)}
+    summary = {}
+    for case in CASES:
+        engines, cpu_engines = make_engines(graph, case_params(case, graph, params),
+                                            {"default": {}})
+        envs = phase_kernels(engines["default"], images, stats, timed=False)
+        if case == CASES[0]:
+            _, summary["stem_routes"] = phase_stems("ssd", engines["default"],
+                                                    cpu_engines["default"], images, stats)
+        _, summary[case], dets = phase_main(f"ssd {case}", engines["default"],
+                                            cpu_engines["default"], images, envs, SSD_LAUNCHES,
+                                            out_shape=(100, 6))
+        summary[case]["kept_per_image_b64"] = float((dets[64][..., 4] > 0).sum()) / 64
+        log(f"ssd {case}: {summary[case]['kept_per_image_b64']:.2f} detections an image kept")
+    return summary
+
+
 def main() -> int:
+    t0 = time.time()
     smi = phase_card()
     phase_build()
-    engines, cpu_engines = phase_artifact("resnet50", "block_fusion", depths=(3, 4, 6, 3))
+    engines, cpu_engines = phase_artifact("resnet50", RESNET_OPTIONS, depths=(3, 4, 6, 3))
     rng = np.random.default_rng(0)
     images = {b: torch.as_tensor(rng.standard_normal(
         (b, 224, 224, 3), dtype=np.float32)).cuda() for b in (64, 1)}
     stats = KernelStats()
-    plain_envs = phase_kernels(engines[False], images, stats, timed=True)
+    plain_envs = phase_kernels(engines["default"], images, stats, timed=True)
     phase_ragged_kernels(stats, images[1].device)
-    launches, summary, logits = phase_main("resnet50", engines[False], cpu_engines[False],
-                                           images, plain_envs, EXPECTED_LAUNCHES)
-    fused_envs = phase_chains(engines[True], images, stats)
+    launches, summary, logits = phase_main("resnet50", engines["default"],
+                                           cpu_engines["default"], images, plain_envs,
+                                           EXPECTED_LAUNCHES)
+    fused_envs = phase_chains(engines["block_fusion"], images, stats)
     fused_launches, summary["block_fusion"], _ = phase_main(
-        "resnet50 block_fusion", engines[True], cpu_engines[True], images, fused_envs,
-        FUSED_LAUNCHES, same_as=logits)
-    del engines, cpu_engines, plain_envs, fused_envs
+        "resnet50 block_fusion", engines["block_fusion"], cpu_engines["block_fusion"], images,
+        fused_envs, FUSED_LAUNCHES, same_as=logits)
     launches["qblockchain"] = fused_launches["qblockchain"]
+    for option in ("phase_stem", "optimize"):
+        envs = phase_kernels(engines[option], images, stats, timed=False)
+        option_launches, summary[option], _ = phase_main(
+            f"resnet50 {option}", engines[option], cpu_engines[option], images, envs,
+            STEM_LAUNCHES[option], same_as=logits)
+        if option == "phase_stem":
+            launches["qconv_s2x1"] = option_launches["qconv_s2x1"]
+    stem_launches, summary["stem_routes"] = phase_stems(
+        "resnet50", engines["default"], cpu_engines["default"], images, stats, timed=True)
+    launches["qstem"] = stem_launches["qstem"]
+    phase_ragged_stems(stats, images[1].device)
+    del engines, cpu_engines, plain_envs, fused_envs, envs
     zoo = {}
     for name in ZOO_LAUNCHES:
         zoo_launches, zoo[name] = phase_zoo(name, images, stats)
@@ -946,6 +1294,7 @@ def main() -> int:
         vit_launches, zoo[name] = phase_vit(name, images, stats)
         if name == "vit_b16":
             launches["qattention"] = vit_launches["qattention"]
+    zoo["ssd"] = phase_ssd(stats)
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         s = stats.k[name]
@@ -957,7 +1306,9 @@ def main() -> int:
             "library_ms": s["library_ms"]})
     log(json.dumps({"checks": {k: v["checks"] for k, v in stats.k.items()},
                     "per_shape_b64": stats.rows}))
-    print(json.dumps({"main_path": summary, **zoo, "card": smi}))
+    wall_s = time.time() - t0
+    log(f"wall time {wall_s:.1f} s")
+    print(json.dumps({"main_path": summary, **zoo, "card": smi, "wall_s": wall_s}))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from tf2_tpu_torch import kernels
-from tf2_tpu_torch.kernels import qattention, qblocks, qconv, qlrn, shift_matmul
+from tf2_tpu_torch.kernels import qattention, qblocks, qconv, qlrn, qstem, shift_matmul
 from tf2_tpu_torch.transform import potq
 
 
@@ -113,7 +113,8 @@ def test_engine_every_node_equals_plain(cuda):
     logits = eng.run(image=x)
     assert kernels.launch_counts() == {"qmatmul_pot4": 9, "qmatmul_int8": 1,
                                        "qconv_s1": 1, "qconv_s2": 7, "qblockchain": 0,
-                                       "qlrn": 0, "qattention": 0}
+                                       "qlrn": 0, "qattention": 0,
+                                       "qconv_s2x1": 0, "qstem": 0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
@@ -201,7 +202,8 @@ def test_block_fused_engine_every_node_equals_plain(cuda):
     logits = eng.run(image=x)
     assert kernels.launch_counts() == {"qmatmul_pot4": 6, "qmatmul_int8": 1,
                                        "qconv_s1": 0, "qconv_s2": 7, "qblockchain": 4,
-                                       "qlrn": 0, "qattention": 0}
+                                       "qlrn": 0, "qattention": 0,
+                                       "qconv_s2x1": 0, "qstem": 0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
@@ -366,7 +368,8 @@ def test_vit_engine_every_node_equals_plain(cuda, name, weight_bits):
     pot4 = 0 if weight_bits == 8 else 4
     assert kernels.launch_counts() == {"qmatmul_pot4": pot4, "qmatmul_int8": 10 - pot4,
                                        "qconv_s1": 0, "qconv_s2": 0, "qblockchain": 0,
-                                       "qlrn": 0, "qattention": 2}
+                                       "qlrn": 0, "qattention": 2,
+                                       "qconv_s2x1": 0, "qstem": 0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
@@ -379,9 +382,11 @@ def test_vit_engine_every_node_equals_plain(cuda, name, weight_bits):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,image,launches", [
     ("googlenet", 64, {"qmatmul_pot4": 37, "qmatmul_int8": 1, "qconv_s1": 19,
-                       "qconv_s2": 1, "qblockchain": 0, "qlrn": 2, "qattention": 0}),
+                       "qconv_s2": 1, "qblockchain": 0, "qlrn": 2, "qattention": 0,
+                       "qconv_s2x1": 0, "qstem": 0}),
     ("squeezenet_v1_1", 96, {"qmatmul_pot4": 16, "qmatmul_int8": 1, "qconv_s1": 8,
-                             "qconv_s2": 1, "qblockchain": 0, "qlrn": 0, "qattention": 0}),
+                             "qconv_s2": 1, "qblockchain": 0, "qlrn": 0, "qattention": 0,
+                             "qconv_s2x1": 0, "qstem": 0}),
 ])
 def test_zoo_engines_every_node_equals_plain(cuda, name, image, launches):
     """GoogLeNet and SqueezeNet at batch 2 on the card, merge_1x1 off and
@@ -408,3 +413,135 @@ def test_zoo_engines_every_node_equals_plain(cuda, name, image, launches):
         cpu = Engine(art.graph, art.params, device="cpu", merge_1x1=merge).run(image=x)
         assert torch.equal(logits[merge].cpu(), cpu)
     assert torch.equal(logits[True], logits[False])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout,kh,kw,pads,wfmt", [
+    (2, 64, 34, 6, 64, 7, 4, ((2, 3), (0, 0)), "int8"),   # ResNet's packed stem, image 64
+    (2, 63, 32, 6, 64, 3, 2, ((0, 0), (0, 0)), "int8"),   # SqueezeNet's, VALID
+    (1, 128, 65, 6, 32, 3, 2, ((0, 1), (0, 0)), "int8"),  # SSD's, image 128
+    (3, 17, 9, 2, 40, 5, 3, ((2, 2), (0, 0)), "int8"),    # cin 1 packed, odd H
+    (2, 15, 12, 32, 48, 3, 3, ((1, 1), (1, 1)), "pot4"),
+])
+@pytest.mark.parametrize("relu", [False, True])
+def test_qconv_s2x1_matches_plain(cuda, b, h, w, cin, cout, kh, kw, pads, wfmt, relu):
+    """The stride-(2, 1) entry of the conv kernel on the wpack2 stems'
+    shapes, and on a pot4 conv."""
+    rng = np.random.default_rng(cin + cout + kh)
+    x = rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)
+    if wfmt == "pot4":
+        wparam = potq.pack_codes(rng.integers(0, 16, (kh * kw * cin, cout)).astype(np.uint8))
+    else:
+        wparam = rng.integers(-127, 128, (kh, kw, cin, cout), dtype=np.int8)
+    es = rng.uniform(1e-5, 1e-3, cout).astype(np.float32)
+    eb = rng.standard_normal(cout).astype(np.float32)
+    x, wparam, es, eb = _tensors(cuda, x, wparam, es, eb)
+    kw_ = dict(kshape=(kh, kw, cin, cout), pads=pads, relu=relu, wfmt=wfmt)
+    before = kernels.launch_counts()["qconv_s2x1"]
+    got = qconv.qconv_s2x1(x, wparam, es, eb, **kw_)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["qconv_s2x1"] == before + 1
+    want = qconv.qconv_plain(x, wparam, es, eb, strides=(2, 1), **kw_)
+    assert torch.equal(got, want)
+    assert 0 < int((want != 0).sum()) < want.numel()
+
+
+def _stem_case(rng, b, h, w, cin, cout, k, extreme):
+    if extreme:
+        x = rng.choice(np.array([-127, 127], np.int8), size=(b, h, w, cin))
+        w_q = rng.choice(np.array([-127, 127], np.int8), size=(k, k, cin, cout))
+    else:
+        x = rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)
+        w_q = rng.integers(-127, 128, (k, k, cin, cout), dtype=np.int8)
+    es = (rng.uniform(0.5, 4.0, cout) / (127 * np.sqrt(k * k * cin))).astype(np.float32)
+    eb = rng.normal(0, 20, cout).astype(np.float32)
+    return x, w_q, es, eb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout,k,padding", [
+    (2, 224, 224, 3, 64, 7, "SAME"),     # ResNet-50 / GoogLeNet
+    (2, 224, 224, 3, 64, 3, "VALID"),    # SqueezeNet v1.1
+    (2, 256, 256, 3, 32, 3, "SAME"),     # SSD
+    (3, 37, 41, 1, 16, 5, "SAME"), (3, 33, 19, 2, 24, 5, "VALID"),
+    (1, 30, 30, 4, 130, 7, "SAME"),      # cout above one 64-channel chunk
+    (2, 9, 7, 3, 8, 1, "SAME")])
+@pytest.mark.parametrize("relu", [False, True])
+def test_qstem_kernel_matches_plain(cuda, b, h, w, cin, cout, k, padding, relu):
+    """The stem kernel on the zoo's stems and ragged ones, with the f32
+    image quantized inside (scale) and on int8 input, random and +-127."""
+    rng = np.random.default_rng(h + w + cin + k)
+    for extreme in (False, True):
+        x, w_q, es, eb = _stem_case(rng, b, h, w, cin, cout, k, extreme)
+        wmat, es, eb = _tensors(cuda, qstem.fold_weight(w_q).numpy(), es, eb)
+        kw = dict(kh=k, kw=k, padding=padding, relu=relu)
+        xf = torch.as_tensor(x.astype(np.float32) * np.float32(0.02)
+                             + rng.uniform(-0.01, 0.01, x.shape).astype(np.float32)).to(cuda)
+        for xin, scale in ((torch.as_tensor(x).to(cuda), None), (xf, 0.02)):
+            before = kernels.launch_counts()["qstem"]
+            got = qstem.qstem(xin, wmat, es, eb, scale=scale, **kw)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["qstem"] == before + 1
+            want = qstem.qstem_plain(xin, wmat, es, eb, scale=scale, **kw)
+            assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), qstem.qstem_plain(xf.cpu(), wmat.cpu(), es.cpu(), eb.cpu(),
+                                                        scale=0.02, **kw))
+
+
+@pytest.mark.cuda
+def test_stem_engines_every_node_equals_plain(cuda):
+    """A small ResNet with Engine(phase_stem=True) and Engine(optimize=True)
+    on the card: launch counts, every node equal to the plain path, logits
+    equal to the default Engine's and to the same Engine on the CPU."""
+    from tf2_tpu_torch.graph import execute
+    from tf2_tpu_torch.models import synthetic_quantized
+    from tf2_tpu_torch.runtime import Engine
+
+    art = synthetic_quantized("resnet50", seed=0, batch=2, image=64,
+                              depths=(1, 1, 1, 1), classes=64)
+    x = np.random.default_rng(0).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    xt = torch.as_tensor(x).to(cuda)
+    default = Engine(art.graph, art.params).run(image=x)
+    base = {"qmatmul_pot4": 9, "qmatmul_int8": 1, "qconv_s1": 1, "qconv_s2": 7,
+            "qblockchain": 0, "qlrn": 0, "qattention": 0, "qconv_s2x1": 0, "qstem": 0}
+    for flag, moved in (("phase_stem", {"qconv_s2": 6, "qconv_s2x1": 1}),
+                        ("optimize", {"qconv_s2": 6, "qconv_s1": 2})):
+        eng = Engine(art.graph, art.params, **{flag: True})
+        kernels.reset_launch_counts()
+        logits = eng.run(image=x)
+        assert kernels.launch_counts() == {**base, **moved}, flag
+        _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
+        _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
+        for n in eng.graph.nodes:
+            assert torch.equal(env[n.name], plain[n.name]), (flag, n.name)
+        assert torch.equal(logits, default)
+        cpu = Engine(art.graph, art.params, device="cpu", **{flag: True}).run(image=x)
+        assert torch.equal(logits.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "background"])
+def test_ssd_engine_every_node_equals_plain(cuda, case):
+    """A small SSD (image 128) on the card under both score cases: 8
+    qconv_s1 and 6 qconv_s2 launches a forward, every node equal to the
+    plain path, detections equal to the Engine on the CPU."""
+    from tf2_tpu_torch.bench.ssd_cases import case_params
+    from tf2_tpu_torch.graph import execute
+    from tf2_tpu_torch.models import synthetic_quantized
+    from tf2_tpu_torch.runtime import Engine
+
+    art = synthetic_quantized("ssd", seed=0, batch=2, image=128)
+    params = case_params(case, art.graph, art.params)
+    x = np.random.default_rng(0).standard_normal((2, 128, 128, 3)).astype(np.float32)
+    eng = Engine(art.graph, params)
+    kernels.reset_launch_counts()
+    dets = eng.run(image=x)
+    counts = kernels.launch_counts()
+    assert (counts["qconv_s1"], counts["qconv_s2"]) == (8, 6)
+    assert sum(counts.values()) == 14
+    xt = torch.as_tensor(x).to(cuda)
+    _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
+    _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
+    for n in eng.graph.nodes:
+        assert torch.equal(env[n.name], plain[n.name]), n.name
+    assert torch.equal(dets.cpu(), Engine(art.graph, params, device="cpu").run(image=x))

@@ -1,6 +1,8 @@
 """The port's Engine against tf2_tpu's on a small ResNet (batch 2, image 64,
 depths (1,1,1,1), 64 classes) with activation scales from the reference's
-calibration: every int8 node, and the logits, equal exactly."""
+calibration: every int8 node, and the logits, equal exactly, with the stem
+as a stride-2 conv (the port's default) and as the reference's default
+``wpack2`` node (``phase_stem=True`` in both)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,36 +45,55 @@ def case():
     scales = ref_calibrate(fg, fp, [{"image": jnp.asarray(x)}])
     art = ref_quantize_graph(fg, fp, scales, RefQuantSpec(weight_bits=4, pot_candidates=5))
     ref_logits = np.asarray(RefEngine(art.graph, art.params).run(image=x))
-    unpacked = RefEngine(art.graph, art.params, phase_stem=False)
-    _, env = jax.jit(ref_execute(unpacked.graph, intermediates=True))(
-        unpacked.params, image=jnp.asarray(x))
-    return dict(art=art, x=x, ref_logits=ref_logits,
-                ref_env={k: np.asarray(v) for k, v in env.items()})
+    ref_env = {}
+    for phase_stem in (False, True):
+        ref = RefEngine(art.graph, art.params, phase_stem=phase_stem)
+        _, env = jax.jit(ref_execute(ref.graph, intermediates=True))(
+            ref.params, image=jnp.asarray(x))
+        ref_env[phase_stem] = {k: np.asarray(v) for k, v in env.items()}
+    return dict(art=art, x=x, ref_logits=ref_logits, ref_env=ref_env)
 
 
-def _port_engine(case):
+def _port_engine(case, phase_stem=False):
     g, p = from_reference(case["art"].graph.to_json(), case["art"].params)
-    return Engine(g, p, device="cpu")
+    return Engine(g, p, device="cpu", phase_stem=phase_stem)
 
 
-def test_logits_equal_reference_engine(case):
+def _logits_equal_reference_engine(case, phase_stem):
     kernels.reset_launch_counts()
-    y = _port_engine(case).run(image=case["x"])
+    y = _port_engine(case, phase_stem).run(image=case["x"])
     assert y.shape == (2, 64) and y.dtype == torch.float32
     np.testing.assert_array_equal(y.numpy(), case["ref_logits"])
     # on the CPU every wrapper takes its plain version
     assert set(kernels.launch_counts().values()) == {0}
 
 
-def test_every_int8_node_equals_reference(case):
-    eng = _port_engine(case)
+def test_logits_equal_reference_engine(case):
+    _logits_equal_reference_engine(case, False)
+
+
+def test_logits_equal_reference_engine_phase_stem(case):
+    _logits_equal_reference_engine(case, True)
+
+
+def _every_int8_node_equals_reference(case, phase_stem):
+    eng = _port_engine(case, phase_stem)
     _, env = execute(eng.graph, intermediates=True)(eng.params,
                                                     image=torch.as_tensor(case["x"]))
     int8_nodes = [n.name for n in eng.graph.nodes if env[n.name].dtype == torch.int8]
     assert len(int8_nodes) == 24
+    assert (eng.graph.nodes[0].attrs["wfmt"] == "wpack2") == phase_stem
     for name in int8_nodes:
-        np.testing.assert_array_equal(env[name].numpy(), case["ref_env"][name],
+        np.testing.assert_array_equal(env[name].numpy(), case["ref_env"][phase_stem][name],
                                       err_msg=name)
+
+
+def test_every_int8_node_equals_reference(case):
+    _every_int8_node_equals_reference(case, False)
+
+
+def test_every_int8_node_equals_reference_phase_stem(case):
+    _every_int8_node_equals_reference(case, True)
 
 
 def test_plain_flag_gives_the_same_values(case):
@@ -95,6 +116,36 @@ def test_engine_graph_matches_reference_passes(case):
     assert eng.graph.to_json() == port_g.to_json()
     stem = eng.graph.nodes[0]
     assert stem.op == "qconv2d" and "s_in" in stem.attrs and stem.inputs == ("image",)
+
+
+@pytest.mark.parametrize("merge", [False, True])
+def test_phase_stem_engine_graph_matches_reference(case, merge):
+    """Engine(phase_stem=True, merge_1x1=m) against the reference's Engine
+    with the same flags ((True, True) is its default): the same graph once
+    the convs the port keeps packed are decoded too, the same packed stem
+    weight, and with the merge every int8 node equal."""
+    import json
+
+    from tf2_tpu_torch.runtime.engine import _decode_pot4
+
+    art = case["art"]
+    g, p = from_reference(art.graph.to_json(), art.params)
+    eng = Engine(g, p, device="cpu", phase_stem=True, merge_1x1=merge)
+    ref = RefEngine(art.graph, art.params, phase_stem=True, merge_1x1=merge)
+    params = {k: v.numpy() for k, v in eng.params.items()}
+    pot4 = {n.name for n in eng.graph.nodes if n.attrs.get("wfmt") == "pot4"}
+    decoded, _ = _decode_pot4(eng.graph, params, pot4)
+    assert json.loads(decoded.to_json()) == json.loads(ref.graph.to_json())
+    stem = eng.graph.nodes[0]
+    assert stem.attrs["wfmt"] == "wpack2"
+    np.testing.assert_array_equal(params[stem.params[0]], np.asarray(ref.params[stem.params[0]]))
+    if merge:
+        _, env = execute(eng.graph, intermediates=True)(eng.params,
+                                                        image=torch.as_tensor(case["x"]))
+        for n in eng.graph.nodes:
+            if env[n.name].dtype == torch.int8:
+                np.testing.assert_array_equal(env[n.name].numpy(), case["ref_env"][True][n.name],
+                                              err_msg=n.name)
 
 
 def test_predecode_decodes_what_kernels_cannot_take(case):

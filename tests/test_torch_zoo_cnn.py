@@ -44,6 +44,10 @@ CASES = {"googlenet": dict(batch=2, image=64, classes=64),
 # quantum in 1 of its 98,304 elements, and that element moves the logits by
 # at most 0.2412219 (measured on the CPU with these seeds)
 GOOGLENET_LOGITS_BOUND = 0.25
+# (merge_1x1, phase_stem) of both packages' Engines; (True, True) is the
+# reference's default
+FLAGS = [(False, False), (True, False), (False, True), (True, True)]
+FLAG_IDS = ["False", "True", "False-phase_stem", "True-phase_stem"]  # merge_1x1 first
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -59,8 +63,8 @@ def _one_torch_thread():
 @pytest.fixture(scope="module", params=list(CASES))
 def zoo(request):
     """The reference's calibrated W4 artifact, its logits (default Engine),
-    and its Engine graph and values with merge_1x1 off and on (without its
-    stem rewrite, which the port does not have)."""
+    and its Engine graph and values with merge_1x1 off and on, each with
+    phase_stem off and on; the port's Engines with the same flags."""
     name = request.param
     g = ref_get_model(name, **CASES[name])
     params = {k: np.asarray(v) for k, v in ref_init_params(g, seed=0).items()}
@@ -69,15 +73,16 @@ def zoo(request):
     scales = ref_calibrate(fg, fp, [{"image": jnp.asarray(x)}])
     art = ref_quantize_graph(fg, fp, scales, RefQuantSpec(weight_bits=4, pot_candidates=5))
     ref = {}
-    for merge in (False, True):
-        eng = RefEngine(art.graph, art.params, phase_stem=False, merge_1x1=merge)
+    for merge, phase in FLAGS:
+        eng = RefEngine(art.graph, art.params, phase_stem=phase, merge_1x1=merge)
         _, env = jax.jit(ref_execute(eng.graph, intermediates=True))(
             eng.params, image=jnp.asarray(x))
-        ref[merge] = (eng.graph, {k: np.asarray(v) for k, v in env.items()})
+        ref[merge, phase] = (eng.graph, {k: np.asarray(v) for k, v in env.items()})
     gp, pp = from_reference(art.graph.to_json(), art.params)
     return dict(name=name, g=g, params=params, scales=scales, art=art, x=x, ref=ref,
                 ref_logits=np.asarray(RefEngine(art.graph, art.params).run(image=x)),
-                engines={m: Engine(gp, pp, device="cpu", merge_1x1=m) for m in (False, True)})
+                engines={(m, p): Engine(gp, pp, device="cpu", merge_1x1=m, phase_stem=p)
+                         for m, p in FLAGS})
 
 
 def test_quantizer_matches_reference(zoo):
@@ -99,20 +104,23 @@ def test_quantizer_matches_reference(zoo):
     assert sum(n.op == "qlrn" for n in part.graph.nodes) == (2 if name == "googlenet" else 0)
 
 
-@pytest.mark.parametrize("merge", [False, True])
-def test_engine_graph_matches_reference_passes(zoo, merge):
+@pytest.mark.parametrize("merge,phase", FLAGS, ids=FLAG_IDS)
+def test_engine_graph_matches_reference_passes(zoo, merge, phase):
     """The port Engine's graph is the reference Engine's once the convs the
-    port keeps packed are decoded too; the merged weights are the same."""
-    eng = zoo["engines"][merge]
-    ref_graph, _ = zoo["ref"][merge]
+    port keeps packed are decoded too; the merged and packed weights are
+    the same."""
+    eng = zoo["engines"][merge, phase]
+    ref_graph, _ = zoo["ref"][merge, phase]
     params = {k: v.numpy() for k, v in eng.params.items()}
     pot4 = {n.name for n in eng.graph.nodes if n.attrs.get("wfmt") == "pot4"}
     decoded, _ = _decode_pot4(eng.graph, params, pot4)
     assert json.loads(decoded.to_json()) == json.loads(ref_graph.to_json())
-    merged = [n for n in eng.graph.nodes if n.name.endswith("__m1x1")]
-    ref_engine = RefEngine(zoo["art"].graph, zoo["art"].params, phase_stem=False,
+    rewritten = [n for n in eng.graph.nodes
+                 if n.name.endswith("__m1x1") or n.attrs.get("wfmt") == "wpack2"]
+    assert sum(n.attrs.get("wfmt") == "wpack2" for n in rewritten) == int(phase)
+    ref_engine = RefEngine(zoo["art"].graph, zoo["art"].params, phase_stem=phase,
                            merge_1x1=merge)
-    for n in merged:
+    for n in rewritten:
         for p in n.params:
             np.testing.assert_array_equal(params[p], np.asarray(ref_engine.params[p]))
 
@@ -123,13 +131,13 @@ def test_merge_gate(zoo):
     beside an e3x3 on the squeeze output), those at 23x23 (fires 2, 3)
     merge into an int8 3x3 and those at 11x11 and 5x5 do not, as the
     shapes the h >= 20 gate reads say."""
-    default = zoo["engines"][False]
+    default = zoo["engines"][False, False]
     shapes = activation_shapes(default.graph, default.params)
     siblings: dict[str, list] = {}
     for n in default.graph.nodes:
         if n.op == "qconv2d":
             siblings.setdefault(n.inputs[0], []).append(n)
-    merged = zoo["engines"][True].graph
+    merged = zoo["engines"][True, False].graph
     sliced = {n.name for n in merged.nodes if n.op == "slice_c"}
     m1x1 = [n for n in merged.nodes if n.name.endswith("__m1x1")]
     if zoo["name"] == "googlenet":
@@ -146,13 +154,13 @@ def test_merge_gate(zoo):
     assert [n.attrs["kshape"] for n in m1x1] == [[3, 3, 16, 128]] * 2
 
 
-@pytest.mark.parametrize("merge", [False, True])
-def test_every_int8_node_equals_reference(zoo, merge):
+@pytest.mark.parametrize("merge,phase", FLAGS, ids=FLAG_IDS)
+def test_every_int8_node_equals_reference(zoo, merge, phase):
     """Each int8 node of the port's Engine graph, fed the reference's own
     input values, equals the reference's node exactly; the qlrn nodes are
     held to the reference kernel test's bar."""
-    eng = zoo["engines"][merge]
-    _, env = zoo["ref"][merge]
+    eng = zoo["engines"][merge, phase]
+    _, env = zoo["ref"][merge, phase]
     checked = 0
     for n in eng.graph.nodes:
         if env[n.name].dtype != np.int8:
@@ -171,15 +179,26 @@ def test_every_int8_node_equals_reference(zoo, merge):
     assert checked == {("googlenet", False): 83, ("googlenet", True): 92,
                        ("squeezenet_v1_1", False): 38,
                        ("squeezenet_v1_1", True): 40}[(zoo["name"], merge)]
+    assert (eng.graph.nodes[0].attrs.get("wfmt") == "wpack2") == phase
 
 
 def test_logits_against_reference_engine(zoo):
     """SqueezeNet's logits are the float64 mean of the reference's own int8
     conv10 output, dequantized, and within the f32 summation error of the
     reference's f32 mean. GoogLeNet's stay within the stated bound of the
-    reference's, with the same argmax."""
+    reference's, with the same argmax. The port's default Engine."""
+    _logits_against_reference_engine(zoo, False, False)
+
+
+def test_logits_against_reference_engine_reference_flags(zoo):
+    """The same with the reference's default flags (merge_1x1 and
+    phase_stem on) in both packages."""
+    _logits_against_reference_engine(zoo, True, True)
+
+
+def _logits_against_reference_engine(zoo, merge, phase):
     kernels.reset_launch_counts()
-    y = zoo["engines"][False].run(image=zoo["x"]).numpy()
+    y = zoo["engines"][merge, phase].run(image=zoo["x"]).numpy()
     assert set(kernels.launch_counts().values()) == {0}
     ref = zoo["ref_logits"]
     assert y.shape == ref.shape == (2, 64)
@@ -187,7 +206,7 @@ def test_logits_against_reference_engine(zoo):
         assert np.abs(y - ref).max() <= GOOGLENET_LOGITS_BOUND
         np.testing.assert_array_equal(y.argmax(1), ref.argmax(1))
         return
-    graph, env = zoo["ref"][False]
+    graph, env = zoo["ref"][merge, phase]
     gap = next(n for n in graph.nodes if n.op == "global_avgpool")
     xf = env[gap.inputs[0]]
     np.testing.assert_array_equal(y, xf.astype(np.float64).mean(axis=(1, 2)).astype(np.float32))
@@ -197,14 +216,16 @@ def test_logits_against_reference_engine(zoo):
 
 def test_merged_logits_equal_default(zoo):
     x = zoo["x"]
-    assert torch.equal(zoo["engines"][True].run(image=x), zoo["engines"][False].run(image=x))
+    default = zoo["engines"][False, False].run(image=x)
+    for flags in FLAGS[1:]:
+        assert torch.equal(zoo["engines"][flags].run(image=x), default), flags
 
 
 def test_activation_shapes_match_reference(zoo):
     """On the merged graph, whose slices and qlrn/qconcat nodes the shape
     pass runs on ``meta`` tensors."""
-    graph, _ = zoo["ref"][True]
-    eng = zoo["engines"][True]
+    graph, _ = zoo["ref"][True, True]
+    eng = zoo["engines"][True, True]
     assert activation_shapes(eng.graph, eng.params) == ref_activation_shapes(graph)
 
 
@@ -214,5 +235,5 @@ def test_artifact_round_trip_through_engine(zoo, tmp_path):
     g2, p2 = load_artifact(str(tmp_path))
     assert g2.to_json() == zoo["art"].graph.to_json()
     y = Engine(g2.with_batch_size(1), p2, device="cpu").run(image=zoo["x"][1:])
-    assert torch.equal(y, zoo["engines"][False].run(image=zoo["x"])[1:])
+    assert torch.equal(y, zoo["engines"][False, False].run(image=zoo["x"])[1:])
     assert Graph.from_json(g2.to_json()).to_json() == g2.to_json()

@@ -144,6 +144,34 @@ def _transpose(node: Node, params, x):
     return x.permute(node.attrs["perm"]).contiguous()
 
 
+@register_op("pad")
+def _pad(node: Node, params, x):
+    """Zeros of x's dtype; ``pads`` is (before, after) for each axis."""
+    return F.pad(x, [p for pair in reversed(node.attrs["pads"]) for p in pair])
+
+
+@register_op("space_to_depth")
+def _space_to_depth(node: Node, params, x):
+    """NHWC block rearrange (H, W, C) -> (H / blk, W / blk, blk * blk * C),
+    channels in (dy, dx, c) order, copied."""
+    b, h, w, c = x.shape
+    blk = node.attrs.get("block", 2)
+    x = x.reshape(b, h // blk, blk, w // blk, blk, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // blk, w // blk, blk * blk * c)
+
+
+@register_op("softmax")
+def _softmax(node, params, x):
+    """Softmax over the last axis in steps that give the same bits on the
+    card and the CPU: the exp in float64 rounded once to f32, the row sum
+    in float64 rounded once, an IEEE f32 division (``qattention_plain``'s
+    recipe). It can differ from XLA's f32 ``jax.nn.softmax`` in the last
+    bit."""
+    xf = x.to(torch.float32)
+    e = torch.exp((xf - xf.amax(dim=-1, keepdim=True)).to(torch.float64)).to(torch.float32)
+    return e / e.to(torch.float64).sum(dim=-1, keepdim=True).to(torch.float32)
+
+
 @register_op("prepend_token")
 def _prepend_token(node: Node, params, x):
     tok = params[node.params[0]].to(x.dtype)

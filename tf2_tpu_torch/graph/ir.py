@@ -315,6 +315,9 @@ class GraphBuilder:
             attrs["batch_leading"] = bool(batch_leading)
         return self.raw("reshape", [x], name=name, **attrs)
 
+    def softmax(self, x: str, name: str | None = None) -> str:
+        return self.raw("softmax", [x], name=name)
+
     def dropout(self, x: str, rate: float = 0.5, name: str | None = None) -> str:
         return self.raw("dropout", [x], name=name, rate=rate)
 

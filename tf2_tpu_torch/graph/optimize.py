@@ -1,17 +1,20 @@
 """Graph passes. The port has the transform-time ``patchify_stem`` and the
 load-time ``fuse_stem_quantize``, ``fuse_lrn_quantize``,
-``hoist_input_quantize``, ``merge_sibling_1x1`` and
-``fuse_bottleneck_chains``; the other passes of ``tf2_tpu.graph.optimize``
-come with later slices. Each emits the graph the reference's pass emits for
-the same input."""
+``hoist_input_quantize``, ``pack_phase_stem``, ``merge_sibling_1x1``,
+``fuse_bottleneck_chains`` and ``space_to_depth_stem``: every pass of
+``tf2_tpu.graph.optimize``. Each emits the graph the reference's pass emits
+for the same input."""
 from __future__ import annotations
 
+import logging
 from collections import defaultdict
 
 import numpy as np
 
 from .ir import Graph, Node, TensorSpec
 from .shapes import activation_shapes
+
+log = logging.getLogger(__name__)
 
 
 def fuse_stem_quantize(graph: Graph, params) -> tuple[Graph, dict]:
@@ -92,6 +95,77 @@ def patchify_stem(graph: Graph, params) -> tuple[Graph, dict]:
         w2d = w.reshape(kh * kw * cin, cout)
         new_params[n.params[0]] = w2d
         new_specs[n.params[0]] = TensorSpec(w2d.shape, str(w2d.dtype))
+        changed = True
+    if not changed:
+        return graph, dict(params)
+    g = Graph(graph.name, dict(graph.inputs), graph.outputs, new_nodes,
+              new_specs, dict(graph.meta))
+    g.validate()
+    return g, new_params
+
+
+def pack_phase_stem(graph: Graph, params) -> tuple[Graph, dict]:
+    """W-axis pair packing of the strided small-cin stems: each int8
+    qconv2d with a fused input quantize (``s_in``), strides (2, 2), cin <= 4,
+    a square kernel and SAME or VALID padding becomes a ``wpack2`` node.
+    Two consecutive W-pixels go into the channels (W' = W / 2, cin' =
+    2 * cin), so the W stride is one packed pixel and the conv is one
+    stride-(2, 1) conv of the (k, ceil(k / 2), 2 * cin, cout) weight
+    ``{name}.wpack``: tap j of output ox is packed pixel ox + j // 2,
+    in-pair pixel j % 2. Attrs ``pack_kshape``, ``pack_pad_w`` (W zero pads
+    before packing), ``pack_pad_h``, ``pack_ow``, ``pack_oh``. Exact: the
+    same products, summed in another order.
+
+    Runs after ``fuse_stem_quantize``. The reference's pass swallows a
+    failure of ``activation_shapes`` and returns the graph unchanged; this
+    one raises. Its right pad is negative for an even kernel with VALID
+    padding and an odd width, as the reference's is (the executor then
+    raises, as the reference's ``jnp.pad`` does); no stem of the zoo has
+    one."""
+    shapes = activation_shapes(graph, params)
+    new_nodes: list[Node] = []
+    new_params = dict(params)
+    new_specs = dict(graph.params)
+    changed = False
+    for n in graph.nodes:
+        pad = n.attrs.get("padding", "SAME")
+        if not (n.op == "qconv2d" and "s_in" in n.attrs and n.attrs.get("wfmt") == "int8"
+                and tuple(n.attrs.get("strides", [1, 1])) == (2, 2)
+                and n.attrs.get("groups", 1) == 1):
+            new_nodes.append(n)
+            continue
+        kh, kw, cin, cout = n.attrs["kshape"]
+        xshape = shapes.get(n.inputs[0])
+        if xshape is None or cin > 4 or kh != kw or pad not in ("SAME", "VALID"):
+            new_nodes.append(n)
+            continue
+        _, h, w, _ = xshape
+        if pad == "SAME":
+            ow = -(-w // 2)
+            lo_w = max(0, (ow - 1) * 2 + kw - w) // 2
+            oh = -(-h // 2)
+            tot_h = max(0, (oh - 1) * 2 + kh - h)
+            lo_h, hi_h = tot_h // 2, tot_h - tot_h // 2
+        else:
+            ow = (w - kw) // 2 + 1
+            oh = (h - kh) // 2 + 1
+            lo_w = lo_h = hi_h = 0
+        t_w = (kw + 1) // 2
+        wq = np.asarray(params[n.params[0]])
+        wp = np.zeros((kh, t_w, 2 * cin, cout), np.int8)
+        for j in range(kw):
+            b_, dw = divmod(j, 2)
+            wp[:, b_, dw * cin:(dw + 1) * cin, :] = wq[:, j, :, :]
+        wpad = 2 * (ow - 1 + t_w)
+        names = (f"{n.name}.wpack",) + tuple(n.params[1:])
+        new_params[names[0]] = wp
+        new_specs[names[0]] = TensorSpec(wp.shape, "int8")
+        new_params.pop(n.params[0], None)
+        new_specs.pop(n.params[0], None)
+        attrs = dict(n.attrs, wfmt="wpack2", pack_kshape=list(wp.shape),
+                     pack_pad_w=[lo_w, wpad - w - lo_w], pack_pad_h=[lo_h, hi_h],
+                     pack_ow=ow, pack_oh=oh)
+        new_nodes.append(Node(n.name, "qconv2d", n.inputs, names, attrs))
         changed = True
     if not changed:
         return graph, dict(params)
@@ -450,3 +524,100 @@ def fuse_bottleneck_chains(graph: Graph, params) -> tuple[Graph, dict]:
               dict(graph.params), dict(graph.meta))
     g.validate()
     return g, dict(params)
+
+
+def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
+    out = -(-size // s)
+    total = max((out - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def space_to_depth_stem(graph: Graph, params) -> tuple[Graph, dict]:
+    """Rewrite the first qconv2d, when it is an int8 odd k x k stride-2 SAME
+    ungrouped stem on cin <= 8, into pad -> space_to_depth -> a VALID
+    stride-1 conv over 4 * cin channels with the (k + 1) / 2-square weight:
+    out[oy, ox] = sum s2d(xp)[oy + a, ox + b, (dy, dx, c)] * w[2a + dy,
+    2b + dx, c], with the kernel zero-padded to an even size. The pads are
+    TF-SAME plus one row or column where the padded extent is odd. When the
+    first conv does not match, it logs a warning and changes nothing (the
+    ``wpack2`` stem after ``pack_phase_stem``, SqueezeNet's VALID stem).
+
+    Placement: before a single-consumer ``quantize`` that feeds the stem
+    (pad and space_to_depth on f32, then the quantize); otherwise on the
+    stem's own input, the fallback. Behind the Engine ``fuse_stem_quantize``
+    has already deleted the quantize, so the fallback pads and rearranges
+    the raw f32 image and the conv keeps its ``s_in``."""
+    stem = None
+    for n in graph.nodes:
+        if n.op == "qconv2d":
+            kh, kw, cin, cout = n.attrs["kshape"]
+            sh, sw = n.attrs.get("strides", [1, 1])
+            if (sh == sw == 2 and kh == kw and kh % 2 == 1 and kh > 1 and cin <= 8
+                    and n.attrs.get("groups", 1) == 1
+                    and n.attrs.get("padding", "SAME") == "SAME"
+                    and n.attrs.get("wfmt") == "int8"):
+                stem = n
+            else:
+                log.warning("space_to_depth_stem: first conv %s does not match the stem "
+                            "pattern (wfmt=%s k=%dx%d s=%dx%d cin=%d); rewrite skipped",
+                            n.name, n.attrs.get("wfmt"), kh, kw, sh, sw, cin)
+            break
+    if stem is None:
+        return graph, dict(params)
+
+    kh, kw, cin, cout = stem.attrs["kshape"]
+    xs = activation_shapes(graph, params)[stem.inputs[0]]
+    if len(xs) != 4:
+        log.warning("space_to_depth_stem: stem input %s is not 4D (%s); rewrite skipped",
+                    stem.inputs[0], xs)
+        return graph, dict(params)
+    h, w = xs[1], xs[2]
+    ph0, ph1 = _same_pads(h, kh, 2)
+    pw0, pw1 = _same_pads(w, kw, 2)
+    ph1 += (h + ph0 + ph1) % 2
+    pw1 += (w + pw0 + pw1) % 2
+
+    w_q = np.asarray(params[stem.params[0]])
+    ke = kh + kh % 2
+    wpad = np.zeros((ke, ke, cin, cout), w_q.dtype)
+    wpad[:kh, :kw] = w_q
+    # (2a + dy, 2b + dx, c, o) -> (a, b, (dy, dx, c), o)
+    w4 = (wpad.reshape(ke // 2, 2, ke // 2, 2, cin, cout).transpose(0, 2, 1, 3, 4, 5)
+          .reshape(ke // 2, ke // 2, 4 * cin, cout))
+    new_params = dict(params)
+    new_params[stem.params[0]] = w4
+    new_specs = dict(graph.params)
+    new_specs[stem.params[0]] = TensorSpec(w4.shape, str(w4.dtype))
+
+    quant = None
+    for n in graph.nodes:
+        if n.name == stem.inputs[0] and n.op == "quantize":
+            if len([m for m in graph.nodes if n.name in m.inputs]) == 1:
+                quant = n
+            break
+
+    pad_name, s2d_name = f"{stem.name}__s2d_pad", f"{stem.name}__s2d"
+    pads_attr = {"pads": [[0, 0], [ph0, ph1], [pw0, pw1], [0, 0]]}
+    attrs = dict(stem.attrs, strides=[1, 1], padding="VALID",
+                 kshape=[ke // 2, ke // 2, 4 * cin, cout])
+    new_nodes: list[Node] = []
+    for n in graph.nodes:
+        if quant is not None and n.name == quant.name:
+            # f32 domain: pad and space_to_depth feed the quantize itself
+            new_nodes.append(Node(pad_name, "pad", (quant.inputs[0],), (), pads_attr))
+            new_nodes.append(Node(s2d_name, "space_to_depth", (pad_name,), (), {"block": 2}))
+            new_nodes.append(Node(quant.name, quant.op, (s2d_name,), quant.params,
+                                  dict(quant.attrs)))
+        elif n.name != stem.name:
+            new_nodes.append(n)
+        elif quant is not None:
+            new_nodes.append(Node(stem.name, stem.op, stem.inputs, stem.params, attrs))
+        else:
+            # fallback: on the stem's own input
+            new_nodes.append(Node(pad_name, "pad", (stem.inputs[0],), (), pads_attr))
+            new_nodes.append(Node(s2d_name, "space_to_depth", (pad_name,), (), {"block": 2}))
+            new_nodes.append(Node(stem.name, stem.op, (s2d_name,), stem.params, attrs))
+    g = Graph(graph.name, dict(graph.inputs), graph.outputs, new_nodes,
+              new_specs, dict(graph.meta))
+    g.validate()
+    return g, new_params

@@ -5,10 +5,10 @@ Each wrapper counts its launches; ``launch_counts`` reads the counts and
 ``reset_launch_counts`` sets them to 0, so a run can show which kernels
 carried it.
 """
-from . import qattention, qblocks, qconv, qlrn, shift_matmul
+from . import qattention, qblocks, qconv, qlrn, qstem, shift_matmul
 
 _COUNTS = (shift_matmul.LAUNCHES, qconv.LAUNCHES, qblocks.LAUNCHES, qlrn.LAUNCHES,
-           qattention.LAUNCHES)
+           qattention.LAUNCHES, qstem.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:

@@ -3,14 +3,15 @@
 //
 // The kernel's first template argument is a tag type named after the Python
 // wrapper that launches it (qmatmul_pot4, qmatmul_int8, qconv_s1, qconv_s2,
-// the keys of kernels.launch_counts()), so a profiler trace names each
-// launch by its wrapper.
+// qconv_s2x1, the keys of kernels.launch_counts()), so a profiler trace
+// names each launch by its wrapper.
 //
 // One block computes a 128 x 128 tile of Y = epilogue(A . B), where A is
 // (M, K) int8 and B is (K, N) int8, on the tensor cores with
 // mma.sync.m16n8k32 (s8 x s8 -> s32). A is either a row-major matrix (GEMM)
 // or the implicit im2col view of an NHWC image (CONV) with K ordered
-// (dy, dx, c) as in HWIO weights; TF-SAME zero padding is applied by bounds
+// (dy, dx, c) as in HWIO weights, at strides (SH, SW) (template
+// arguments; a GEMM takes 1, 1); TF-SAME zero padding is applied by bounds
 // checks, so no padded copy of the image is ever written. B is either int8
 // (K, N) or 4-bit power-of-two codes packed two per byte in split-half
 // layout (K/2, N), decoded to int8 inside the block.
@@ -114,7 +115,7 @@ struct Row {
   bool valid;
 };
 
-template <int MODE, int STRIDE>
+template <int MODE, int SH, int SW>
 __device__ __forceinline__ Row row_info(const Args& p, int m) {
   Row r{p.x, 0, 0, m < p.M};
   if (!r.valid) return r;
@@ -126,8 +127,8 @@ __device__ __forceinline__ Row row_info(const Args& p, int m) {
   const int b = m / ohw, rem = m - b * ohw;
   const int oy = rem / p.OW, ox = rem - oy * p.OW;
   r.base = p.x + (size_t)b * p.H * p.W * p.C;
-  r.iy0 = oy * STRIDE - p.pad_top;
-  r.ix0 = ox * STRIDE - p.pad_left;
+  r.iy0 = oy * SH - p.pad_top;
+  r.ix0 = ox * SW - p.pad_left;
   return r;
 }
 
@@ -148,7 +149,7 @@ union Chunk {
   uint8_t b[16];
 };
 
-template <class Tag, int MODE, int STRIDE, bool POT4, bool RESID>
+template <class Tag, int MODE, int SH, int SW, bool POT4, bool RESID>
 __global__ void __launch_bounds__(THREADS, 2) qgemm_kernel(const Args p) {
   __shared__ __align__(16) int8_t sA[BM * LDS];  // [m][j]
   __shared__ __align__(16) int8_t sB[BN * LDS];  // [n][j], B transposed
@@ -158,8 +159,8 @@ __global__ void __launch_bounds__(THREADS, 2) qgemm_kernel(const Args p) {
 
   // A loader: rows tid/4 and tid/4 + 64, 16-byte column chunk tid%4
   const int aq = tid & 3;
-  const Row rows[2] = {row_info<MODE, STRIDE>(p, m0 + (tid >> 2)),
-                       row_info<MODE, STRIDE>(p, m0 + (tid >> 2) + 64)};
+  const Row rows[2] = {row_info<MODE, SH, SW>(p, m0 + (tid >> 2)),
+                       row_info<MODE, SH, SW>(p, m0 + (tid >> 2) + 64)};
   // 16-byte loads where every 16 consecutive k of a chunk are contiguous
   // in memory and aligned; the byte path covers the rest (the cin=3 stem,
   // the fc's N=1000)
@@ -295,11 +296,11 @@ __global__ void __launch_bounds__(THREADS, 2) qgemm_kernel(const Args p) {
   }
 }
 
-template <class Tag, int MODE, int STRIDE, bool POT4, bool RESID = false>
+template <class Tag, int MODE, int SH, int SW, bool POT4, bool RESID = false>
 int launch(const Args& p, void* stream) {
   if (p.M > 0 && p.N > 0) {
     const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
-    qgemm_kernel<Tag, MODE, STRIDE, POT4, RESID><<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
+    qgemm_kernel<Tag, MODE, SH, SW, POT4, RESID><<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
 }

@@ -51,7 +51,7 @@ tf2::Args gemm_args(const void* x, const void* w, const void* es, const void* eb
 extern "C" int tf2_qmatmul_pot4(const void* x, const void* wp, const void* es,
                                 const void* eb, void* y, int m, int n, int k,
                                 int relu, void* stream) {
-  return tf2::launch<qmatmul_pot4, tf2::GEMM, 1, true>(
+  return tf2::launch<qmatmul_pot4, tf2::GEMM, 1, 1, true>(
       gemm_args(x, wp, es, eb, y, m, n, k, relu), stream);
 }
 
@@ -61,8 +61,8 @@ extern "C" int tf2_qmatmul_int8(const void* x, const void* w, const void* es,
                                 const void* eb, const void* r, void* y, int m, int n,
                                 int k, int relu, float radd, void* stream) {
   tf2::Args p = gemm_args(x, w, es, eb, y, m, n, k, relu);
-  if (!r) return tf2::launch<qmatmul_int8, tf2::GEMM, 1, false>(p, stream);
+  if (!r) return tf2::launch<qmatmul_int8, tf2::GEMM, 1, 1, false>(p, stream);
   p.r = static_cast<const int8_t*>(r);
   p.radd = radd;
-  return tf2::launch<qmatmul_int8, tf2::GEMM, 1, false, true>(p, stream);
+  return tf2::launch<qmatmul_int8, tf2::GEMM, 1, 1, false, true>(p, stream);
 }

@@ -10,6 +10,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import build, qattention, qblocks, qconv, qlrn as qlrn_kernel, shift_matmul
 
@@ -21,7 +22,36 @@ def quantize(x: torch.Tensor, scale: float) -> torch.Tensor:
     return torch.clamp(y, -127, 127).to(torch.int8)
 
 
+def pack_w_pairs(x_q: torch.Tensor, pad_w) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H, (W + lo + hi) / 2, 2 C): zero-pad W by
+    ``pad_w`` = (lo, hi), then each pair of W-pixels into the channels."""
+    b, h, w, c = x_q.shape
+    lo, hi = pad_w
+    return F.pad(x_q, (0, 0, lo, hi)).reshape(b, h, (w + lo + hi) // 2, 2 * c)
+
+
+def _qconv_wpack2(node, params, x: torch.Tensor, plain: bool) -> torch.Tensor:
+    """The W-pair-packed stem (graph/optimize.pack_phase_stem): quantize the
+    f32 image, zero-pad W by ``pack_pad_w``, pack each pair of W-pixels into
+    the channels, (B, H, W'/2, 2 * cin), then one stride-(2, 1) conv of the
+    int8 packed weights with H pads ``pack_pad_h``; on the card the conv
+    kernel's (2, 1) entry. A negative pad raises, as the reference's
+    ``jnp.pad`` does."""
+    if min(node.attrs["pack_pad_w"]) < 0:
+        raise ValueError(f"{node.name}: negative W pad {node.attrs['pack_pad_w']}")
+    xp = pack_w_pairs(quantize(x, node.attrs["s_in"]), node.attrs["pack_pad_w"])
+    kw = dict(kshape=tuple(node.attrs["pack_kshape"]),
+              pads=(tuple(node.attrs["pack_pad_h"]), (0, 0)), relu=node.attrs["relu"],
+              wfmt="int8")
+    w_q, es, eb = (params[p] for p in node.params)
+    if plain:
+        return qconv.qconv_plain(xp, w_q, es, eb, strides=(2, 1), **kw)
+    return qconv.qconv_s2x1(xp, w_q, es, eb, **kw)
+
+
 def qconv2d(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    if node.attrs.get("wfmt") == "wpack2":
+        return _qconv_wpack2(node, params, x_q, plain)
     if node.attrs.get("wfmt") not in ("pot4", "int8"):
         raise NotImplementedError(f"weight format {node.attrs.get('wfmt')!r} is not ported")
     if "s_in" in node.attrs:

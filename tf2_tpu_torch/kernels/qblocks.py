@@ -52,7 +52,7 @@ def qblockchain_plain(x_q: torch.Tensor, blocks) -> torch.Tensor:
         x2 = x_q.reshape(b * h * w, cin)
         hm = shift_matmul.qmatmul_int8_plain(x2, blk["w1"], blk["es1"], blk["eb1"], True)
         g = qconv.qconv_plain(hm.reshape(b, h, w, cm), blk["w2"], blk["es2"], blk["eb2"],
-                              stride=1, kshape=(3, 3, cm, cm), pads=((1, 1), (1, 1)),
+                              strides=(1, 1), kshape=(3, 3, cm, cm), pads=((1, 1), (1, 1)),
                               relu=True, wfmt="int8")
         y3 = shift_matmul.qmatmul_int8_plain(g.reshape(b * h * w, cm), blk["w3"],
                                              blk["es3"], blk["eb3"], False)

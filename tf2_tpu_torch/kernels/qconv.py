@@ -1,12 +1,14 @@
 """Fused shift-quantized k x k conv: NHWC int8 x HWIO weights -> requant ->
 NHWC int8.
 
-``qconv_s1`` and ``qconv_s2`` launch the stride-1 and stride-2 entry points
-of ``csrc/qconv.cu`` on CUDA tensors, an implicit GEMM over the unpadded
-image with TF-SAME pads applied inside the kernel; on CPU tensors they take
-the plain version (``qconv_plain``: explicit ``F.pad``, exact float64
-``F.conv2d``, the same f32 epilogue). ``fused_qconv2d`` is the dispatch
-entry: 1x1 stride-1 convs go to the GEMM kernels of ``shift_matmul``.
+``qconv_s1``, ``qconv_s2`` and ``qconv_s2x1`` launch the stride (1, 1),
+(2, 2) and (2, 1) entry points of ``csrc/qconv.cu`` on CUDA tensors, an
+implicit GEMM over the unpadded image with TF-SAME pads applied inside the
+kernel; on CPU tensors they take the plain version (``qconv_plain``:
+explicit ``F.pad``, exact float64 ``F.conv2d``, the same f32 epilogue).
+Stride (2, 1) is the W-pair-packed stem (``wpack2``, dispatch.qconv2d).
+``fused_qconv2d`` is the dispatch entry: 1x1 stride-1 convs go to the GEMM
+kernels of ``shift_matmul``.
 """
 from __future__ import annotations
 
@@ -19,14 +21,16 @@ import torch.nn.functional as F
 from ..transform import potq
 from . import build, shift_matmul
 
-LAUNCHES = {"qconv_s1": 0, "qconv_s2": 0}
+LAUNCHES = {"qconv_s1": 0, "qconv_s2": 0, "qconv_s2x1": 0}
+_KERNELS = {(1, 1): "qconv_s1", (2, 2): "qconv_s2", (2, 1): "qconv_s2x1"}
 _SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library("qconv.cu")
-    for fn in (lib.tf2_qconv_s1, lib.tf2_qconv_s2):
+    for kernel in _KERNELS.values():
+        fn = getattr(lib, f"tf2_{kernel}")
         fn.argtypes, fn.restype = _SIG, ctypes.c_int
     return lib
 
@@ -53,10 +57,10 @@ def out_size(size: int, k: int, s: int, p0: int, p1: int) -> int:
 
 
 def covers(kshape, strides, groups: int) -> bool:
-    """Do the conv kernels take this conv? Ungrouped, equal strides of 1
-    or 2. (The engine's predecode planner asks the same question.)"""
-    sh, sw = strides
-    return groups == 1 and sh == sw and sh in (1, 2)
+    """Do the conv kernels take this conv? Ungrouped, strides (1, 1),
+    (2, 2) or (2, 1). (The engine's predecode planner asks the same
+    question.)"""
+    return groups == 1 and tuple(strides) in _KERNELS
 
 
 def decode_hwio(wparam: torch.Tensor, wfmt: str, kshape) -> torch.Tensor:
@@ -67,28 +71,29 @@ def decode_hwio(wparam: torch.Tensor, wfmt: str, kshape) -> torch.Tensor:
     return wparam.reshape(kshape)
 
 
-def qconv_plain(x_q, wparam, eff_scale, eff_bias, *, stride: int, kshape,
+def qconv_plain(x_q, wparam, eff_scale, eff_bias, *, strides: tuple[int, int], kshape,
                 pads, relu: bool, wfmt: str):
-    """Plain version of both conv kernels."""
+    """Plain version of the conv kernels; ``strides`` (sh, sw)."""
     (ph0, ph1), (pw0, pw1) = pads
     w = decode_hwio(wparam, wfmt, kshape)
     xp = F.pad(x_q.permute(0, 3, 1, 2).to(torch.float64), (pw0, pw1, ph0, ph1))
-    acc = F.conv2d(xp, w.permute(3, 2, 0, 1).to(torch.float64), stride=stride)
+    acc = F.conv2d(xp, w.permute(3, 2, 0, 1).to(torch.float64), stride=tuple(strides))
     # the sum is exact in float64; rounding before the cast keeps it exact
     # whichever algorithm cuDNN picks on the card
     acc = acc.permute(0, 2, 3, 1).contiguous().round().to(torch.int32)
     return shift_matmul.epilogue(acc, eff_scale, eff_bias, relu)
 
 
-def _qconv(stride: int, x_q, wparam, eff_scale, eff_bias, *, kshape, pads,
+def _qconv(strides: tuple[int, int], x_q, wparam, eff_scale, eff_bias, *, kshape, pads,
            relu: bool, wfmt: str):
     if x_q.device.type == "cpu":
-        return qconv_plain(x_q, wparam, eff_scale, eff_bias, stride=stride,
+        return qconv_plain(x_q, wparam, eff_scale, eff_bias, strides=strides,
                            kshape=kshape, pads=pads, relu=relu, wfmt=wfmt)
+    sh, sw = strides
     kh, kw, cin, cout = kshape
     b, h, w, _ = x_q.shape
     (ph0, ph1), (pw0, pw1) = pads
-    oh, ow = out_size(h, kh, stride, ph0, ph1), out_size(w, kw, stride, pw0, pw1)
+    oh, ow = out_size(h, kh, sh, ph0, ph1), out_size(w, kw, sw, pw0, pw1)
     k = kh * kw * cin
     if wfmt == "pot4":
         if k % 2:
@@ -102,7 +107,7 @@ def _qconv(stride: int, x_q, wparam, eff_scale, eff_bias, *, kshape, pads,
                          eff_bias=(eff_bias, torch.float32, (cout,)))
     if oh < 1 or ow < 1:
         raise ValueError(f"empty conv output {oh}x{ow}")
-    kernel = f"qconv_s{stride}"
+    kernel = _KERNELS[(sh, sw)]
     y = torch.empty((b, oh, ow, cout), dtype=torch.int8, device=x_q.device)
     rc = getattr(_lib(), f"tf2_{kernel}")(
         x_q.data_ptr(), wparam.data_ptr(), eff_scale.data_ptr(),
@@ -118,14 +123,22 @@ def qconv_s1(x_q, wparam, eff_scale, eff_bias, *, kshape, pads, relu: bool,
              wfmt: str) -> torch.Tensor:
     """Stride-1 conv. x_q (B, H, W, C) int8 unpadded; wparam pot4 (K/2, N)
     uint8 or int8 HWIO; pads ((top, bottom), (left, right))."""
-    return _qconv(1, x_q, wparam, eff_scale, eff_bias, kshape=kshape, pads=pads,
+    return _qconv((1, 1), x_q, wparam, eff_scale, eff_bias, kshape=kshape, pads=pads,
                   relu=relu, wfmt=wfmt)
 
 
 def qconv_s2(x_q, wparam, eff_scale, eff_bias, *, kshape, pads, relu: bool,
              wfmt: str) -> torch.Tensor:
     """Stride-2 conv, same contract as ``qconv_s1``."""
-    return _qconv(2, x_q, wparam, eff_scale, eff_bias, kshape=kshape, pads=pads,
+    return _qconv((2, 2), x_q, wparam, eff_scale, eff_bias, kshape=kshape, pads=pads,
+                  relu=relu, wfmt=wfmt)
+
+
+def qconv_s2x1(x_q, wparam, eff_scale, eff_bias, *, kshape, pads, relu: bool,
+               wfmt: str) -> torch.Tensor:
+    """Stride 2 along H and 1 along W (the ``wpack2`` stem), same contract
+    as ``qconv_s1``."""
+    return _qconv((2, 1), x_q, wparam, eff_scale, eff_bias, kshape=kshape, pads=pads,
                   relu=relu, wfmt=wfmt)
 
 
@@ -138,10 +151,10 @@ def fused_qconv2d(x_q: torch.Tensor, wparam: torch.Tensor, eff_scale, eff_bias,
     if not covers(kshape, strides, groups):
         raise NotImplementedError(
             f"conv kshape={kshape} strides={strides} groups={groups} is not ported")
-    stride = strides[0]
+    strides = tuple(strides)
     b, h, w, _ = x_q.shape
-    pads = resolve_pads(padding, kh, kw, stride, stride, h, w)
-    if (kh, kw, stride) == (1, 1, 1) and pads == ((0, 0), (0, 0)):
+    pads = resolve_pads(padding, kh, kw, *strides, h, w)
+    if (kh, kw) + strides == (1, 1, 1, 1) and pads == ((0, 0), (0, 0)):
         # a 1x1 stride-1 conv is a GEMM over the B*H*W pixels
         if wfmt == "int8":
             wparam = wparam.reshape(cin, cout)
@@ -149,8 +162,7 @@ def fused_qconv2d(x_q: torch.Tensor, wparam: torch.Tensor, eff_scale, eff_bias,
                                        eff_bias, relu, wfmt, plain)
         return y.reshape(b, h, w, cout)
     if plain:
-        return qconv_plain(x_q, wparam, eff_scale, eff_bias, stride=stride,
+        return qconv_plain(x_q, wparam, eff_scale, eff_bias, strides=strides,
                            kshape=kshape, pads=pads, relu=relu, wfmt=wfmt)
-    fn = qconv_s1 if stride == 1 else qconv_s2
-    return fn(x_q, wparam, eff_scale, eff_bias, kshape=kshape, pads=pads,
-              relu=relu, wfmt=wfmt)
+    return _qconv(strides, x_q, wparam, eff_scale, eff_bias, kshape=kshape, pads=pads,
+                  relu=relu, wfmt=wfmt)

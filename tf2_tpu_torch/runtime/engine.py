@@ -1,7 +1,8 @@
 """Runtime Engine: loads a quantized graph and its params onto a device,
 applies the load-time passes and runs the graph eagerly, layer by layer,
 each conv and dense layer, each LRN and each attention core in one of the
-CUDA kernels."""
+CUDA kernels. SSD's box decode and NMS are plain PyTorch on the device
+(``kernels/detection.py``), as the reference's are XLA."""
 from __future__ import annotations
 
 from typing import Mapping
@@ -13,7 +14,7 @@ from ..graph.execute import execute
 from ..graph.ir import Graph, Node, TensorSpec
 from ..graph.optimize import (fuse_bottleneck_chains, fuse_lrn_quantize,
                               fuse_stem_quantize, hoist_input_quantize,
-                              merge_sibling_1x1)
+                              merge_sibling_1x1, pack_phase_stem, space_to_depth_stem)
 from ..kernels.qconv import covers
 from ..transform import potq
 
@@ -49,8 +50,8 @@ def _decode_pot4(graph: Graph, params, names: set[str]):
 
 def _predecode_fallback_weights(graph: Graph, params):
     """Decode the pot4 qconv2d and qdense nodes that the kernels cannot
-    take packed. A conv keeps its packed codes when it is ungrouped with
-    equal strides of 1 or 2 and an even K; a dense when its K is even and
+    take packed. A conv keeps its packed codes when the conv kernels take
+    it (``qconv.covers``) and its K is even; a dense when its K is even and
     it has no residual input (the residual epilogue is the int8 GEMM's)."""
     names = set()
     for n in graph.nodes:
@@ -80,6 +81,20 @@ def _merge_1x1(graph: Graph, params):
                     lambda g: {n.name for n in g.nodes if n.op == "slice_c"})
 
 
+def _phase_stem(graph: Graph, params):
+    """``pack_phase_stem``: a packed stem becomes a ``wpack2`` node."""
+    return _on_int8(graph, params, pack_phase_stem,
+                    lambda g: {n.name for n in g.nodes if n.attrs.get("wfmt") == "wpack2"})
+
+
+def _space_to_depth(graph: Graph, params):
+    """``space_to_depth_stem``: the rewritten stem reads a ``space_to_depth``
+    node named after it."""
+    return _on_int8(graph, params, space_to_depth_stem,
+                    lambda g: {n.name.removesuffix("__s2d") for n in g.nodes
+                               if n.op == "space_to_depth"})
+
+
 def _fuse_chains(graph: Graph, params):
     """``fuse_bottleneck_chains``: a conv in a chain leaves the graph."""
     names = {n.name for n in graph.nodes}
@@ -104,7 +119,12 @@ class Engine:
 
     The load passes: predecode, ``fuse_stem_quantize``, ``fuse_lrn_quantize``,
     ``hoist_input_quantize`` (the patchified ViT stem's layout copies then
-    move the int8 image), then the optional ones. ``merge_1x1=True`` merges
+    move the int8 image), then the optional ones, in the reference's order.
+    ``phase_stem=True`` packs pairs of W-pixels of each strided small-cin
+    stem into its channels (``graph/optimize.pack_phase_stem``: a ``wpack2``
+    node, one stride-(2, 1) conv); off by default until a measurement on
+    the card decides it (the reference turns it on because of a TPU
+    measurement). ``merge_1x1=True`` merges
     sibling int8 convs on one input into one wide conv and channel slices
     (``graph/optimize.merge_sibling_1x1``; the merged convs get int8
     weights); off by default
@@ -112,22 +132,31 @@ class Engine:
     because of a TPU measurement). ``block_fusion=True`` rewrites runs of
     stride-1 bottleneck blocks into ``qblockchain`` nodes, each run by the
     chain kernel (``kernels/qblocks.py``) with int8 weights. Off by
-    default, as in the reference.
+    default, as in the reference. ``optimize=True`` rewrites the first conv,
+    an odd k x k stride-2 SAME stem, into pad -> space_to_depth -> a
+    stride-1 VALID conv (``graph/optimize.space_to_depth_stem``); off by
+    default, as in the reference, and a no-op after ``phase_stem=True``,
+    whose ``wpack2`` stem it does not match.
     """
 
     def __init__(self, graph: Graph, params: Mapping[str, np.ndarray],
                  device: str | torch.device = "cuda", block_fusion: bool = False,
-                 merge_1x1: bool = False):
+                 merge_1x1: bool = False, phase_stem: bool = False,
+                 optimize: bool = False):
         self.device = _resolve_device(device)
         graph.validate()
         graph, params = _predecode_fallback_weights(graph, params)
         graph, params = fuse_stem_quantize(graph, params)
         graph, params = fuse_lrn_quantize(graph, params)
         graph, params = hoist_input_quantize(graph, params)
+        if phase_stem:
+            graph, params = _phase_stem(graph, params)
         if merge_1x1:
             graph, params = _merge_1x1(graph, params)
         if block_fusion:
             graph, params = _fuse_chains(graph, params)
+        if optimize:
+            graph, params = _space_to_depth(graph, params)
         self.graph = graph
         self.params = {k: torch.as_tensor(np.asarray(v)).to(self.device)
                        for k, v in params.items()}

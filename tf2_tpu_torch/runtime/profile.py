@@ -3,9 +3,10 @@ torch.profiler trace.
 
     python -m tf2_tpu_torch.runtime.profile [--model NAME] [--trace-dir DIR]
 
-Builds the model's synthetic artifact (224x224, 1000 classes; W4-PoT for
-the CNNs, W8 for ViT-B/16; ``--model`` is resnet50, the default, googlenet,
-squeezenet_v1_1, vit_b16 or vit_b16_cls), warms an Engine up at batch 64
+Builds the model's synthetic artifact (224x224, 1000 classes, SSD 256x256,
+21 classes with the random score case; W4-PoT for the CNNs and SSD, W8 for
+ViT-B/16; ``--model`` is resnet50, the default, googlenet, squeezenet_v1_1,
+ssd, vit_b16 or vit_b16_cls), warms an Engine up at batch 64
 and at batch 1, then profiles 5 back-to-back forwards of each; then, for
 the CNNs, the same with the model's Engine option on (``block_fusion=True``
 for ResNet-50, ``merge_1x1=True`` for GoogLeNet and SqueezeNet).
@@ -35,8 +36,9 @@ BATCHES = (64, 1)
 STEPS = 5
 # model -> the Engine option it profiles (None: the default Engine only)
 OPTIONS = {"resnet50": "block_fusion", "googlenet": "merge_1x1",
-           "squeezenet_v1_1": "merge_1x1", "vit_b16": None, "vit_b16_cls": None}
+           "squeezenet_v1_1": "merge_1x1", "ssd": None, "vit_b16": None, "vit_b16_cls": None}
 WEIGHT_BITS = {"vit_b16": 8, "vit_b16_cls": 8}  # the others: 4
+SIZES = {"ssd": (256, 21)}  # (image, classes); the others: (224, 1000)
 
 
 def kernel_family(name: str) -> str:
@@ -109,13 +111,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     option = OPTIONS[args.model]
+    image, classes = SIZES.get(args.model, (224, 1000))
     art = synthetic_quantized(args.model, seed=0, weight_bits=WEIGHT_BITS.get(args.model, 4),
-                              batch=1, image=224, classes=1000)
+                              batch=1, image=image, classes=classes)
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir = args.trace_dir or tmp
         os.makedirs(trace_dir, exist_ok=True)
-        images = {b: torch.as_tensor(rng.standard_normal((b, 224, 224, 3),
+        images = {b: torch.as_tensor(rng.standard_normal((b, image, image, 3),
                                                          dtype=np.float32)).cuda()
                   for b in BATCHES}
         for flag in (False, True) if option else (False,):
