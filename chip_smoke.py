@@ -67,7 +67,8 @@ Phases, in order; any failure exits non-zero before the last line:
              every qattention_core node against qattention_plain on its real
              input at both batches, on random qkv under three (s_in, s_out)
              pairs from flat to peaked softmax, on +-127 inputs, and on
-             ragged (N, T, heads, hd), all with 0 mismatches; qattention
+             ragged (N, T, heads, hd), T up to 4,096 (streamed through
+             shared memory), all with 0 mismatches; qattention
              timed at batch 64 (kernel, plain, bound,
              F.scaled_dot_product_attention on the dequantized bf16 q, k, v
              as the yardstick). Then both Engines as in phase 5: launch
@@ -104,6 +105,24 @@ Phases, in order; any failure exits non-zero before the last line:
              0 / 0 / 8 / 6 / 0 / 0 / 0 / 0 / 0, every node equal to the
              plain path and at batch 1 to the CPU Engine (the detections
              too), Engine.benchmark.
+14. vit 384  ViT-B/16 fine-tuned at 384x384 (vit_b16_cls, T = 577: K and
+             V resident, three passes over chunks of keys) as phase 10 at
+             batch 8 and 1: every qdense and qattention_core node against
+             its plain version, launch counts 0 / 50 / 0 / 0 / 0 / 0 / 12 /
+             0 / 0, every node equal to the plain path and at batch 1 to the
+             CPU Engine, Engine.benchmark; the kernel timed at batch 64 on
+             random qkv of its shape (64, 577, 2304) beside its plain
+             version, bf16 SDPA and the bound (a per-shape row, outside the
+             kernels line).
+15. coverage graphs outside the zoo (tf2_tpu_torch/bench/coverage_cases.py)
+             whose nodes the kernels do not take: a CNN with a depthwise
+             3x3, a groups=2 3x3, a 3x3/s3 and a (1, 2)-strided conv, and a
+             ViT with heads 24 wide. Engine.plain_nodes printed and equal to
+             the nodes no kernel takes, those nodes run plain on the card,
+             the others on their kernels, every node equal to
+             Engine(device="cpu").
+Every zoo Engine on the card (phases 3-14) must have empty plain_nodes:
+the coverage plan sends none of the zoo's nodes to a plain version.
 Launch counts are in the order (qmatmul_pot4, qmatmul_int8, qconv_s1,
 qconv_s2, qblockchain, qlrn, qattention, qconv_s2x1, qstem). Prints the
 summary line (every path's numbers, the stem routes, the run's wall time),
@@ -242,15 +261,28 @@ def load_round_trip(name: str, image: int = 224, classes: int = 1000, **kwargs):
     return graph, params, art.size_bytes() / 1e6
 
 
-def make_engines(graph, params, options):
-    """Engines at batch 64 and 1 and on the CPU at batch 1 for each of
-    ``options`` (label -> Engine flags). -> (engines[label][batch],
-    cpu_engines[label])."""
+def zoo_engine(graph, params, **flags):
+    """An Engine on the card for a zoo model: its coverage plan must send
+    no node to a plain version."""
+    from tf2_tpu_torch.runtime import Engine
+
+    eng = Engine(graph, params, **flags)
+    if eng.plain_nodes:
+        raise RuntimeError(f"{graph.name} {flags}: nodes no kernel takes: "
+                           f"{sorted(eng.plain_nodes)}")
+    return eng
+
+
+def make_engines(graph, params, options, batches=(64, 1)):
+    """Engines on the card at each of ``batches`` and on the CPU at batch 1
+    for each of ``options`` (label -> Engine flags). -> (engines[label]
+    [batch], cpu_engines[label])."""
     from tf2_tpu_torch.runtime import Engine
 
     engines, cpu_engines = {}, {}
     for label, flags in options.items():
-        engines[label] = {b: Engine(graph.with_batch_size(b), params, **flags) for b in (64, 1)}
+        engines[label] = {b: zoo_engine(graph.with_batch_size(b), params, **flags)
+                          for b in batches}
         cpu_engines[label] = Engine(graph.with_batch_size(1), params, device="cpu", **flags)
     return engines, cpu_engines
 
@@ -341,18 +373,11 @@ def _qlrn_bound_ms(node, x_q) -> tuple[float, float]:
 
 
 def _qattention_bound_ms(node, qkv) -> tuple[float, float]:
-    """qattention reads the int8 qkv once and writes the int8 output once.
-    Per head it does 2 * T * T * hd int8 multiply-adds (QK^T and PV, 2
-    operations each), and per score 6 f32 operations (the scale, the max,
-    the subtraction, the division, * 127, the round) and 2 in f64 (the exp,
-    counted as one, and the row sum's add)."""
-    n, t, three_dim = qkv.shape
-    heads, dim = node.attrs["heads"], node.attrs["dim"]
-    scores = n * heads * t * t
-    int8_ops = 2 * 2 * scores * (dim // heads)
-    ops_ms = (int8_ops / H100_INT8_OPS_PER_S + 6 * scores / H100_F32_OPS_PER_S
-              + 2 * scores / H100_F64_OPS_PER_S) * 1e3
-    return (qkv.numel() + n * t * dim) / H100_BYTES_PER_S * 1e3, ops_ms
+    """qattention's bound (``tf2_tpu_torch/bench/qattention_ab.bound_ms``)."""
+    from tf2_tpu_torch.bench.qattention_ab import bound_ms
+
+    n, t, _ = qkv.shape
+    return bound_ms(n, t, node.attrs["heads"], node.attrs["dim"])
 
 
 def _work(node, params, x_q, y) -> tuple[float, float]:
@@ -834,7 +859,8 @@ def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as
                                f"not finite (B, {out_shape})")
         if same_as is not None and not torch.equal(logits, same_as[b]):
             raise RuntimeError(f"{label} b{b}: logits differ from the default Engine's")
-        _, env = execute(eng.graph, intermediates=True)(eng.params, image=images[b])
+        _, env = execute(eng.graph, intermediates=True, plain_nodes=eng.plain_nodes)(
+            eng.params, image=images[b])
         differ = [n.name for n in eng.graph.nodes
                   if not torch.equal(env[n.name], plain_envs[b][n.name])]
         if differ or not torch.equal(logits, plain_envs[b][eng.graph.outputs[0]]):
@@ -885,7 +911,7 @@ def phase_zoo(name, images, stats):
     return launches, summary
 
 
-def vit_artifact(name: str):
+def vit_artifact(name: str, image: int = 224):
     """Full-width ViT-B/16 at W8: the synthetic artifact's recipe
     (``models.synthetic_quantized``), with the position embedding, the class
     token and every layer norm's scale and offset drawn from a seeded
@@ -896,7 +922,7 @@ def vit_artifact(name: str):
     from tf2_tpu_torch.models import SYNTHETIC_ACT_SCALE, get_model
     from tf2_tpu_torch.transform import QuantSpec, fold_batch_norm, quantize_graph
 
-    g = get_model(name, batch=64, image=224, classes=1000)
+    g = get_model(name, batch=64, image=image, classes=1000)
     params = init_params(g, seed=0)
     rng = np.random.default_rng(3)
     for k, v in sorted(params.items()):
@@ -911,14 +937,13 @@ def vit_artifact(name: str):
     return quantize_graph(fg, fp, scales, QuantSpec(weight_bits=8))
 
 
-def phase_vit_artifact(name: str):
-    """The ViT artifact, saved and loaded back; Engines at batch 64 and 1
-    and on the CPU at batch 1. -> (engines[batch], cpu_engine)."""
-    from tf2_tpu_torch.runtime import Engine
+def phase_vit_artifact(name: str, image: int = 224, batches=(64, 1)):
+    """The ViT artifact, saved and loaded back; Engines at ``batches`` and
+    on the CPU at batch 1. -> (engines[batch], cpu_engine)."""
     from tf2_tpu_torch.transform import load_artifact, save_artifact
 
     t = time.time()
-    art = vit_artifact(name)
+    art = vit_artifact(name, image)
     with tempfile.TemporaryDirectory() as d:
         save_artifact(d, art.graph, art.params)
         graph, params = load_artifact(d)
@@ -927,9 +952,10 @@ def phase_vit_artifact(name: str):
     for k, v in art.params.items():
         if not np.array_equal(params[k], v):
             raise RuntimeError(f"{name}: artifact round trip changed {k}")
-    engines = {b: Engine(graph.with_batch_size(b), params) for b in (64, 1)}
-    cpu_engine = Engine(graph.with_batch_size(1), params, device="cpu")
-    log(f"artifact {name}: {len(params)} tensors, {art.size_bytes() / 1e6:.1f} MB, "
+    engines, cpu_engines = make_engines(graph, params, {"default": {}}, batches)
+    engines, cpu_engine = engines["default"], cpu_engines["default"]
+    log(f"artifact {name} {image}x{image}: {len(params)} tensors, "
+        f"{art.size_bytes() / 1e6:.1f} MB, "
         f"transform + save + load + engines {time.time() - t:.1f} s")
     return engines, cpu_engine
 
@@ -941,12 +967,12 @@ def _attention_node(node, s_in, s_out):
                 dict(node.attrs, s_in=s_in, s_out=s_out))
 
 
-def phase_qattention(engines, plain_envs, stats, timed: bool):
+def phase_qattention(engines, plain_envs, stats, timed: bool, ragged: bool = True):
     """Holds every qattention_core node against ``qattention_plain``: on its
     real input at each batch, then at the same shape on random qkv under
-    each pair of ATTN_SCALES and on +-127 inputs, then on ragged (N, T,
-    heads, hd); times the kernel at batch 64 when ``timed`` (the first node,
-    times the nodes a forward: they share the shape)."""
+    each pair of ATTN_SCALES and on +-127 inputs, then, with ``ragged``, on
+    ragged (N, T, heads, hd); times the kernel at batch 64 when ``timed``
+    (the first node, times the nodes a forward: they share the shape)."""
     from tf2_tpu_torch.graph import Node
 
     rng = np.random.default_rng(6)
@@ -966,7 +992,9 @@ def phase_qattention(engines, plain_envs, stats, timed: bool):
         elif b == 1:
             log(f"qattention {nodes[0].name} b1: "
                 f"{cuda_ms(lambda: _call(nodes[0], eng.params, x), 20):.6f} ms")
-    for n, t, heads, hd in [(3, 50, 4, 64), (2, 17, 4, 16), (1, 1, 12, 64), (5, 197, 12, 64)]:
+    for n, t, heads, hd in [(3, 50, 4, 64), (2, 17, 4, 16), (1, 1, 12, 64), (5, 197, 12, 64),
+                            (1, 481, 2, 64), (2, 577, 12, 64), (1, 1025, 2, 128),
+                            (1, 4096, 2, 64)] if ragged else []:
         node = Node(f"ragged_{n}x{t}x{heads}x{hd}", "qattention_core", ("qkv",), (),
                     {"heads": heads, "dim": heads * hd})
         qkv = rng.integers(-127, 128, (n, t, 3 * heads * hd), dtype=np.int8)
@@ -992,6 +1020,69 @@ def phase_vit(name, images, stats):
     launches, summary, _ = phase_main(name, engines, cpu_engine, images, envs, VIT_LAUNCHES)
     log(f"{name}: kernels " + ", ".join(f"{k} {v['checks']} checks" for k, v in stats.k.items()))
     return launches, summary
+
+
+def phase_vit384(stats):
+    """Phase 14: ViT-B/16 at 384x384 (vit_b16_cls, T = 577) at batch 8 and
+    1 as phase 10, then the kernel at batch 64 on random qkv of its shape,
+    timed beside its plain version, bf16 SDPA and the bound (a per-shape
+    row, not in the kernels line). Returns the summary."""
+    rng = np.random.default_rng(9)
+    images = {b: torch.as_tensor(rng.standard_normal((b, 384, 384, 3), dtype=np.float32)).cuda()
+              for b in (8, 1)}
+    engines, cpu_engine = phase_vit_artifact("vit_b16_cls", image=384, batches=(8, 1))
+    envs = phase_kernels(engines, images, stats, timed=False)
+    phase_qattention(engines, envs, stats, timed=False, ragged=False)
+    _, summary, _ = phase_main("vit_b16_cls 384", engines, cpu_engine, images, envs,
+                               VIT_LAUNCHES)
+    node = next(n for n in engines[1].graph.nodes if n.op == "qattention_core")
+    qkv = torch.as_tensor(rng.integers(-127, 128, (64, 577, 3 * node.attrs["dim"]),
+                                       dtype=np.int8)).cuda()
+    stats.compare("qattention", node, {}, qkv, "b64 384x384 random")
+    stats.raise_on_mismatch("the attention kernel disagrees with its plain version")
+    stats.time("qattention", node, {}, qkv, None, 12, total=False)
+    summary["qattention_b64_row"] = stats.rows[-1]
+    log(f"vit_b16_cls 384: qattention b64 {stats.rows[-1]['ms']:.6f} ms a launch")
+    return summary
+
+
+def phase_coverage():
+    """Phase 15: the graphs of tf2_tpu_torch/bench/coverage_cases.py at
+    batch 2 on the card: Engine.plain_nodes must be the nodes no kernel
+    takes, and every node must equal Engine(device="cpu"). Returns the
+    summary."""
+    from tf2_tpu_torch import kernels
+    from tf2_tpu_torch.bench import coverage_cases
+    from tf2_tpu_torch.graph import execute
+    from tf2_tpu_torch.runtime import Engine
+
+    rng = np.random.default_rng(10)
+    summary = {}
+    for label, art, image, want in [
+            ("convs", coverage_cases.conv_artifact(), 32, coverage_cases.CONV_PLAIN),
+            ("vit_hd24", coverage_cases.tiny_vit_hd24(), 64, {"blk0_attn"})]:
+        eng = Engine(art.graph, art.params)
+        cpu = Engine(art.graph, art.params, device="cpu")
+        log(f"coverage {label}: plain_nodes {sorted(eng.plain_nodes)}")
+        if eng.plain_nodes != want:
+            raise RuntimeError(f"coverage {label}: plain_nodes {sorted(eng.plain_nodes)}, "
+                               f"expected {sorted(want)}")
+        x = torch.as_tensor(rng.standard_normal((2, image, image, 3), dtype=np.float32))
+        kernels.reset_launch_counts()
+        logits, env = execute(eng.graph, intermediates=True, plain_nodes=eng.plain_nodes)(
+            eng.params, image=x.cuda())
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        cpu_logits, cpu_env = execute(cpu.graph, intermediates=True)(cpu.params, image=x)
+        differ = [n.name for n in eng.graph.nodes
+                  if not torch.equal(env[n.name].cpu(), cpu_env[n.name])]
+        if differ or not torch.equal(eng.run(image=x).cpu(), cpu_logits) or not counts:
+            raise RuntimeError(f"coverage {label}: nodes differ from the CPU Engine: {differ}")
+        log(f"coverage {label}: {len(eng.graph.nodes)} nodes equal the CPU Engine; "
+            f"launches {counts}")
+        summary[label] = {"plain_nodes": sorted(eng.plain_nodes), "launches": counts,
+                          "nodes_checked": len(eng.graph.nodes)}
+    return summary
 
 
 def _stem_pieces(cpu_engine, dev):
@@ -1295,6 +1386,8 @@ def main() -> int:
         if name == "vit_b16":
             launches["qattention"] = vit_launches["qattention"]
     zoo["ssd"] = phase_ssd(stats)
+    zoo["vit_b16_cls_384"] = phase_vit384(stats)
+    zoo["coverage"] = phase_coverage()
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         s = stats.k[name]

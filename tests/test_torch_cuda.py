@@ -321,16 +321,18 @@ def test_qattention_kernel_matches_plain(cuda, n, t, heads, hd, s_in, s_out):
 
 
 @pytest.mark.cuda
-def test_qattention_kernel_at_its_longest_sequence(cuda):
-    for hd in (64, 128):
-        t = qattention.max_tokens(hd)
-        assert t >= 197
-        qkv = torch.as_tensor(_qkv(np.random.default_rng(hd), 1, t, 2 * hd)).to(cuda)
-        kw = dict(heads=2, dim=2 * hd, s_in=0.02, s_out=0.05)
+@pytest.mark.parametrize("n,t,heads,hd", [(1, 481, 2, 64), (2, 577, 3, 64), (1, 1025, 2, 128),
+                                          (1, 4096, 2, 64), (1, 2000, 1, 16)])
+def test_qattention_kernel_at_long_sequences(cuda, n, t, heads, hd):
+    """No sequence limit: past the old shared-memory limit (480 at hd 64),
+    ViT-B/16's 577 at 384x384 (K and V resident, three passes over chunks
+    of keys) and sequences whose K and V stream through shared memory."""
+    rng = np.random.default_rng(t + hd)
+    for s_in, s_out in [(0.005, 0.01), (0.1, 0.05)]:
+        kw = dict(heads=heads, dim=heads * hd, s_in=s_in, s_out=s_out)
+        qkv = torch.as_tensor(_qkv(rng, n, t, heads * hd)).to(cuda)
+        assert qattention.covers(t, hd)
         assert torch.equal(qattention.qattention(qkv, **kw), qattention.qattention_plain(qkv, **kw))
-        with pytest.raises(ValueError, match="tokens"):
-            qattention.qattention(torch.zeros((1, t + 1, 6 * hd), dtype=torch.int8,
-                                              device=cuda), **kw)
 
 
 @pytest.mark.cuda
@@ -345,6 +347,7 @@ def test_qattention_refuses_what_it_does_not_take(cuda):
     base = torch.zeros(3 * 64 * 8 + 1, dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
         qattention.qattention(base[1:].view(1, 8, 192), heads=1, dim=64, **kw)
+    assert not qattention.covers(8, 24) and not qattention.covers(8, 144)
 
 
 @pytest.mark.cuda
@@ -545,3 +548,33 @@ def test_ssd_engine_every_node_equals_plain(cuda, case):
     for n in eng.graph.nodes:
         assert torch.equal(env[n.name], plain[n.name]), n.name
     assert torch.equal(dets.cpu(), Engine(art.graph, params, device="cpu").run(image=x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["convs", "vit_hd24"])
+def test_engine_with_plain_nodes_equals_cpu(cuda, case):
+    """Graphs outside the zoo (tf2_tpu_torch/bench/coverage_cases.py): the
+    Engine's coverage plan lists the nodes no kernel takes, they run their
+    plain versions on the card, every other node its kernel, and every
+    node equals the Engine on the CPU."""
+    from tf2_tpu_torch.bench import coverage_cases
+    from tf2_tpu_torch.graph import execute
+    from tf2_tpu_torch.runtime import Engine
+
+    if case == "convs":
+        art, image, want = coverage_cases.conv_artifact(), 32, coverage_cases.CONV_PLAIN
+    else:
+        art, image, want = coverage_cases.tiny_vit_hd24(), 64, {"blk0_attn"}
+    eng = Engine(art.graph, art.params)
+    cpu = Engine(art.graph, art.params, device="cpu")
+    assert eng.plain_nodes == want and cpu.plain_nodes == frozenset()
+    x = np.random.default_rng(0).standard_normal((2, image, image, 3)).astype(np.float32)
+    kernels.reset_launch_counts()
+    logits = eng.run(image=x)
+    assert sum(kernels.launch_counts().values()) > 0
+    _, env = execute(eng.graph, intermediates=True, plain_nodes=eng.plain_nodes)(
+        eng.params, image=torch.as_tensor(x).to(cuda))
+    _, cpu_env = execute(cpu.graph, intermediates=True)(cpu.params, image=torch.as_tensor(x))
+    for n in eng.graph.nodes:
+        assert torch.equal(env[n.name].cpu(), cpu_env[n.name]), n.name
+    assert torch.equal(logits.cpu(), cpu.run(image=x))

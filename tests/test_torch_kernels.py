@@ -131,14 +131,20 @@ def test_explicit_padding():
 
 
 def test_uncovered_convs_raise():
+    """A conv the kernels do not take raises off the CPU (here on ``meta``
+    tensors, before any launch; tests/test_torch_cuda.py on the card) and
+    runs its plain version on a CPU tensor (tests/test_torch_coverage.py
+    holds it against the reference)."""
     x, wparam, es, eb = _conv_case(1, 8, 8, 16, 32, 3, "pot4")
     assert qconv.covers((3, 3, 64, 64), (2, 2), 1)
     assert not qconv.covers((3, 3, 8, 32), (1, 1), 2)
     assert not qconv.covers((3, 3, 64, 64), (4, 4), 1)
     assert not qconv.covers((3, 3, 64, 64), (1, 2), 1)
+    kw = dict(strides=(1, 1), padding="SAME", groups=2, relu=True, wfmt="pot4",
+              kshape=(3, 3, 8, 32))
     with pytest.raises(NotImplementedError):
-        qconv.fused_qconv2d(*_t(x, wparam, es, eb), strides=(1, 1), padding="SAME",
-                            groups=2, relu=True, wfmt="pot4", kshape=(3, 3, 8, 32))
+        qconv.fused_qconv2d(*(t.to("meta") for t in _t(x, wparam, es, eb)), **kw)
+    assert qconv.fused_qconv2d(*_t(x, wparam, es, eb), **kw).shape == (1, 8, 8, 32)
 
 
 def test_cpu_wrappers_count_no_launches():

@@ -11,7 +11,9 @@ f32 exp, which is not correctly rounded (it differs from the port's
 float64 exp rounded once in the last bit of 12% of the elements), moves
 13 of 302,592 outputs by one quantum (ROADMAP Queue 3). No test here enters
 Pallas interpret mode. The kernel itself is held against
-``qattention_plain`` on the card in tests/test_torch_cuda.py."""
+``qattention_plain`` on the card in tests/test_torch_cuda.py. Sequences
+beyond the old kernel's limit (T = 481, ViT-B/16's 577 at 384x384, 1025)
+are exact under all three pairs."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -75,6 +77,24 @@ def test_plain_qattention_matches_reference(n, t, heads, dim, s_in, s_out):
         np.testing.assert_array_equal(got.numpy(), want)
     # outputs are neither all 0 nor all clipped
     assert 0 < int((want != 0).sum()) and int((np.abs(want) < 127).sum()) > want.size // 10
+
+
+@pytest.mark.parametrize("n,t,heads,dim", [
+    (1, 481, 2, 128),    # past the old kernel's limit of 480 at hd 64
+    (1, 577, 12, 768),   # ViT-B/16 at 384x384 with the class token
+    (1, 1025, 2, 128),
+])
+@pytest.mark.parametrize("s_in,s_out", SCALES)
+def test_plain_qattention_long_sequences_match_reference(n, t, heads, dim, s_in, s_out):
+    qkv = np.random.default_rng(n * t + dim).integers(-127, 128, (n, t, 3 * dim), dtype=np.int8)
+    want = _reference(qkv, heads, dim, s_in, s_out)
+    got = qattention.qattention(torch.as_tensor(qkv), heads=heads, dim=dim, s_in=s_in,
+                                s_out=s_out)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if s_in > 0.005:
+        # the flat pair's p = e / sum is below 1 / 254 for every key at
+        # these lengths, so every p_q and output is 0 in both packages
+        assert int((want != 0).sum()) > want.size // 2
 
 
 def test_plain_qattention_extremes():

@@ -356,3 +356,40 @@ def test_hoist_input_quantize_matches_reference():
     xv = np.random.default_rng(0).standard_normal((2, 8, 8, 3)).astype(np.float32)
     before, after = execute(g)({}, x=torch.as_tensor(xv)), execute(got)({}, x=torch.as_tensor(xv))
     assert all(torch.equal(a, b) for a, b in zip(before, after))
+
+
+def test_long_sequence_vit_every_int8_node_equals_reference():
+    """A tiny vit_b16_cls with T = 530 > 480, the old kernel's limit (image
+    368, patch 16, depth 1, dim 64, 2 heads, W8): every int8 node of the
+    port Engine, fed the reference's own inputs, equals the reference's.
+    qlayernorm is held within one quantum, as above, and so is the input
+    quantize: the reference's jitted ``x / s`` is XLA's multiplication by
+    the reciprocal, which the port's true division (correctly rounded on
+    both devices) leaves in about one element per million (2 of 812,544
+    here; none on the 64x64 images above)."""
+    g = ref_get_model("vit_b16_cls", batch=2, image=368, classes=10, dim=64, depth=1, heads=2)
+    fg, fp = ref_patchify_stem(*ref_fold(g, _random_params(g)))
+    x = np.random.default_rng(2).standard_normal(g.inputs["image"].shape).astype(np.float32)
+    scales = ref_calibrate(fg, fp, [{"image": jnp.asarray(x)}])
+    art = ref_quantize_graph(fg, fp, scales, _spec(RefQuantSpec, 8, True))
+    ref = RefEngine(art.graph, art.params)
+    logits, env = jax.jit(ref_execute(ref.graph, intermediates=True))(
+        ref.params, image=jnp.asarray(x))
+    env = {k: np.asarray(v) for k, v in env.items()}
+    eng = Engine(*from_reference(art.graph.to_json(), art.params), device="cpu")
+    attn = next(n for n in eng.graph.nodes if n.op == "qattention_core")
+    assert env[attn.inputs[0]].shape == (2, 530, 3 * 64)
+    for n in eng.graph.nodes:
+        if env[n.name].dtype != np.int8:
+            continue
+        impl, takes_plain = _OP_IMPLS[n.op]
+        args = [torch.tensor(env[i]) for i in n.inputs]
+        got = (impl(n, eng.params, *args, plain=False) if takes_plain
+               else impl(n, eng.params, *args)).numpy()
+        if n.op in ("qlayernorm", "quantize"):
+            _within_one(got, env[n.name], n.name)
+        else:
+            np.testing.assert_array_equal(got, env[n.name], err_msg=n.name)
+    # end to end the two moved codes change no logit (measured: 0)
+    y = eng.run(image=x).numpy()
+    assert np.abs(y - np.asarray(logits)).max() <= LOGITS_BOUND

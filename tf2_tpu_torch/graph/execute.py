@@ -3,7 +3,9 @@ on torch tensors, eagerly, on the device the tensors live on.
 
 Ops with a kernel (``register_op(..., kernel=True)``) take a ``plain`` flag:
 ``execute(graph, plain=True)`` runs their plain PyTorch versions instead of
-the kernels, on any device, as the reference a kernel run is held against.
+the kernels, on any device, as the reference a kernel run is held against;
+``execute(graph, plain_nodes=names)`` runs only the named nodes so (the
+Engine's coverage plan: the nodes no kernel takes).
 """
 from __future__ import annotations
 
@@ -28,9 +30,12 @@ def register_op(name: str, kernel: bool = False):
     return deco
 
 
-def execute(graph: Graph, intermediates: bool = False, plain: bool = False):
+def execute(graph: Graph, intermediates: bool = False, plain: bool = False,
+            plain_nodes: frozenset[str] = frozenset()):
     """Return fn(params, **inputs) -> outputs (a tuple if several). With
-    ``intermediates=True`` it returns (outputs, dict of every value)."""
+    ``intermediates=True`` it returns (outputs, dict of every value). The
+    nodes named in ``plain_nodes`` run their plain versions, as every node
+    does with ``plain=True``."""
 
     def fn(params: Params, **inputs):
         env: dict[str, torch.Tensor] = dict(inputs)
@@ -43,7 +48,8 @@ def execute(graph: Graph, intermediates: bool = False, plain: bool = False):
             # device time to "<op>:<node>"
             with torch.profiler.record_function(f"{node.op}:{node.name}"):
                 if takes_plain:
-                    env[node.name] = impl(node, params, *args, plain=plain)
+                    env[node.name] = impl(node, params, *args,
+                                          plain=plain or node.name in plain_nodes)
                 else:
                     env[node.name] = impl(node, params, *args)
         outs = tuple(env[o] for o in graph.outputs)

@@ -157,10 +157,10 @@ def qbias_add(node, params, x_q: torch.Tensor) -> torch.Tensor:
     return _requant(x_q.to(torch.float32) * ratio + params[node.params[0]].to(torch.float32))
 
 
-def qblockchain(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def chain_blocks(node, params) -> list[dict]:
     """A fused chain of bottleneck blocks (graph/optimize.
-    fuse_bottleneck_chains): the node's params, c1, c2, c3 (and the
-    downsample) of each block in order, become the kernel's block dicts."""
+    fuse_bottleneck_chains) as the kernel's block dicts: the node's params,
+    c1, c2, c3 (and the downsample) of each block in order, reshaped."""
     blocks = []
     it = iter(node.params)
     for battrs in node.attrs["blocks"]:
@@ -179,7 +179,12 @@ def qblockchain(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.T
         blk["sb_over_so"] = battrs["sb"] / battrs["so"]
         blk["relu"] = battrs["relu"]
         blocks.append(blk)
-    return qblocks.fused_qblockchain(x_q, blocks, plain)
+    return blocks
+
+
+def qblockchain(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """The chain kernel (kernels/qblocks.py) on ``chain_blocks``."""
+    return qblocks.fused_qblockchain(x_q, chain_blocks(node, params), plain)
 
 
 def qlrn(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:

@@ -19,9 +19,10 @@ products are exact in any order and every f32 step is one correctly
 rounded operation; the float64 exp is the same function in the kernel and
 in ``torch.exp`` on the card, and the float64 row sum, rounded once to f32,
 differs between orders only when it lies within a few double ulps of an
-f32 rounding boundary. The kernel takes hd a multiple of 16 up to 128, any
-N, and T up to ``max_tokens(hd)`` (the logit rows of 64 queries and the
-head's K and V in one block's shared memory).
+f32 rounding boundary. The kernel takes hd a multiple of 16 up to 128 and
+any N and T (``covers``): its logits stay in registers, a chunk of keys at
+a time, and a sequence whose K and V do not fit one block's shared memory
+streams through it.
 """
 from __future__ import annotations
 
@@ -34,22 +35,20 @@ import torch
 from . import build
 
 LAUNCHES = {"qattention": 0}
-_SIG = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+_SIG = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library("qattention.cu")
     lib.tf2_qattention.argtypes, lib.tf2_qattention.restype = _SIG, ctypes.c_int
-    lib.tf2_qattention_max_tokens.argtypes = [ctypes.c_int]
-    lib.tf2_qattention_max_tokens.restype = ctypes.c_int
     return lib
 
 
-def max_tokens(hd: int) -> int:
-    """The longest sequence the kernel takes at head width ``hd`` on the
-    current card."""
-    return _lib().tf2_qattention_max_tokens(hd)
+def covers(t: int, hd: int) -> bool:
+    """Does the kernel take a sequence of ``t`` tokens at head width
+    ``hd``? Any t >= 1 at hd a multiple of 16 up to 128."""
+    return t >= 1 and 16 <= hd <= 128 and hd % 16 == 0
 
 
 def scales(heads: int, dim: int, s_in: float, s_out: float) -> tuple[float, float]:
@@ -80,11 +79,14 @@ def qattention_plain(qkv_q: torch.Tensor, *, heads: int, dim: int, s_in: float,
     return y.transpose(1, 2).reshape(n, t, dim)
 
 
-def qattention(qkv_q: torch.Tensor, *, heads: int, dim: int, s_in: float,
-               s_out: float) -> torch.Tensor:
+def qattention(qkv_q: torch.Tensor, *, heads: int, dim: int, s_in: float, s_out: float,
+               fallbacks: torch.Tensor | None = None) -> torch.Tensor:
     """qkv_q (N, T, 3 * dim) int8 -> (N, T, dim) int8. Raises on a CUDA
-    tensor the kernel does not take (hd not a multiple of 16 or above 128,
-    T above ``max_tokens(hd)``, a start not 16-byte aligned)."""
+    tensor the kernel does not take (``covers``: hd not a multiple of 16 or
+    above 128; a start not 16-byte aligned). ``fallbacks``, a (1,) int64
+    tensor on the card, gets the number of elements whose division took
+    the kernel's exact steps (its certified fast path flagged them) added
+    to it."""
     if qkv_q.device.type == "cpu":
         return qattention_plain(qkv_q, heads=heads, dim=dim, s_in=s_in, s_out=s_out)
     n, t, three_dim = qkv_q.shape
@@ -92,16 +94,18 @@ def qattention(qkv_q: torch.Tensor, *, heads: int, dim: int, s_in: float,
         raise ValueError(f"qattention: qkv {tuple(qkv_q.shape)} with dim {dim}, {heads} heads")
     build.check_operands(qkv_q.device, qkv_q=(qkv_q, torch.int8, (n, t, 3 * dim)))
     hd = dim // heads
-    if hd % 16 or hd > 128:
-        raise ValueError(f"qattention kernel: head width {hd}, needs a multiple of 16 up to 128")
-    if t > max_tokens(hd):
-        raise ValueError(f"qattention kernel: {t} tokens, at most {max_tokens(hd)} at hd {hd}")
+    if not covers(t, hd):
+        raise ValueError(f"qattention kernel: head width {hd} and {t} tokens, needs a "
+                         "multiple of 16 up to 128 and at least one token")
     if qkv_q.data_ptr() % 16:
         raise ValueError("qattention kernel: qkv does not start on a 16-byte boundary")
+    if fallbacks is not None:
+        build.check_operands(qkv_q.device, fallbacks=(fallbacks, torch.int64, (1,)))
     y = torch.empty((n, t, dim), dtype=torch.int8, device=qkv_q.device)
     qk_scale, pv_scale = scales(heads, dim, s_in, s_out)
     rc = _lib().tf2_qattention(qkv_q.data_ptr(), y.data_ptr(), n, t, heads, hd,
                                qk_scale, pv_scale,
+                               None if fallbacks is None else fallbacks.data_ptr(),
                                torch.cuda.current_stream(qkv_q.device).cuda_stream)
     build.check_launch(rc, "qattention")
     LAUNCHES["qattention"] += 1

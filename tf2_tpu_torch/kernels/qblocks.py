@@ -90,14 +90,15 @@ def band_rows(b: int, h: int, w: int, cm: int, sms: int) -> int:
     return max(full) if full else 1
 
 
-def covers(shape, blocks) -> bool:
+def covers(shape, blocks, smem_limit: int = SMEM_LIMIT) -> bool:
     """Does the chain kernel take this chain? Every block's 3x3 output and
-    c1 band fit one CTA's shared memory at one output row, identity blocks
-    keep the channel count, and each block reads the previous one's output."""
+    c1 band fit one CTA's shared memory (``smem_limit``, the card's) at one
+    output row, identity blocks keep the channel count, and each block
+    reads the previous one's output."""
     _, h, w, cin = shape
     for blk in blocks:
         cm, cout = blk["w1"].shape[1], blk["w3"].shape[1]
-        if blk["w1"].shape[0] != cin or smem_bytes(h, w, cm, 1) > SMEM_LIMIT:
+        if blk["w1"].shape[0] != cin or smem_bytes(h, w, cm, 1) > smem_limit:
             return False
         if "wd" not in blk and cin != cout:
             return False

@@ -7,8 +7,12 @@ implicit GEMM over the unpadded image with TF-SAME pads applied inside the
 kernel; on CPU tensors they take the plain version (``qconv_plain``:
 explicit ``F.pad``, exact float64 ``F.conv2d``, the same f32 epilogue).
 Stride (2, 1) is the W-pair-packed stem (``wpack2``, dispatch.qconv2d).
-``fused_qconv2d`` is the dispatch entry: 1x1 stride-1 convs go to the GEMM
-kernels of ``shift_matmul``.
+``fused_qconv2d`` is the dispatch entry: ungrouped 1x1 stride-1 convs go to
+the GEMM kernels of ``shift_matmul``; a conv the kernels do not take
+(``covers``: grouped, or another stride) runs its plain version on the CPU
+and raises on the card, where the Engine's coverage plan sends it to the
+plain version at load (``runtime/engine.py``), as the reference sends it
+to XLA.
 """
 from __future__ import annotations
 
@@ -58,8 +62,8 @@ def out_size(size: int, k: int, s: int, p0: int, p1: int) -> int:
 
 def covers(kshape, strides, groups: int) -> bool:
     """Do the conv kernels take this conv? Ungrouped, strides (1, 1),
-    (2, 2) or (2, 1). (The engine's predecode planner asks the same
-    question.)"""
+    (2, 2) or (2, 1). (The Engine's predecode and its coverage plan ask the
+    same question.)"""
     return groups == 1 and tuple(strides) in _KERNELS
 
 
@@ -72,12 +76,14 @@ def decode_hwio(wparam: torch.Tensor, wfmt: str, kshape) -> torch.Tensor:
 
 
 def qconv_plain(x_q, wparam, eff_scale, eff_bias, *, strides: tuple[int, int], kshape,
-                pads, relu: bool, wfmt: str):
-    """Plain version of the conv kernels; ``strides`` (sh, sw)."""
+                pads, relu: bool, wfmt: str, groups: int = 1):
+    """Plain version of the conv kernels, and of any conv they do not take:
+    ``strides`` (sh, sw), ``kshape`` (kh, kw, cin / groups, cout)."""
     (ph0, ph1), (pw0, pw1) = pads
     w = decode_hwio(wparam, wfmt, kshape)
     xp = F.pad(x_q.permute(0, 3, 1, 2).to(torch.float64), (pw0, pw1, ph0, ph1))
-    acc = F.conv2d(xp, w.permute(3, 2, 0, 1).to(torch.float64), stride=tuple(strides))
+    acc = F.conv2d(xp, w.permute(3, 2, 0, 1).to(torch.float64), stride=tuple(strides),
+                   groups=groups)
     # the sum is exact in float64; rounding before the cast keeps it exact
     # whichever algorithm cuDNN picks on the card
     acc = acc.permute(0, 2, 3, 1).contiguous().round().to(torch.int32)
@@ -146,23 +152,24 @@ def fused_qconv2d(x_q: torch.Tensor, wparam: torch.Tensor, eff_scale, eff_bias,
                   strides, padding, groups: int, relu: bool, wfmt: str,
                   kshape, plain: bool = False) -> torch.Tensor:
     """x_q NHWC int8 -> NHWC int8 through the kernel for this shape, or its
-    plain version when ``plain``."""
-    kh, kw, cin, cout = kshape
-    if not covers(kshape, strides, groups):
-        raise NotImplementedError(
-            f"conv kshape={kshape} strides={strides} groups={groups} is not ported")
+    plain version when ``plain`` or on a CPU tensor. Raises on a CUDA
+    tensor the kernels do not take (``covers``)."""
+    kh, kw, _, cout = kshape
     strides = tuple(strides)
-    b, h, w, _ = x_q.shape
+    b, h, w, cin = x_q.shape
     pads = resolve_pads(padding, kh, kw, *strides, h, w)
-    if (kh, kw) + strides == (1, 1, 1, 1) and pads == ((0, 0), (0, 0)):
+    if groups == 1 and (kh, kw) + strides == (1, 1, 1, 1) and pads == ((0, 0), (0, 0)):
         # a 1x1 stride-1 conv is a GEMM over the B*H*W pixels
         if wfmt == "int8":
             wparam = wparam.reshape(cin, cout)
         y = shift_matmul.fused_qmatmul(x_q.reshape(b * h * w, cin), wparam, eff_scale,
                                        eff_bias, relu, wfmt, plain)
         return y.reshape(b, h, w, cout)
-    if plain:
+    if plain or x_q.device.type == "cpu":
         return qconv_plain(x_q, wparam, eff_scale, eff_bias, strides=strides,
-                           kshape=kshape, pads=pads, relu=relu, wfmt=wfmt)
+                           kshape=kshape, pads=pads, relu=relu, wfmt=wfmt, groups=groups)
+    if not covers(kshape, strides, groups):
+        raise NotImplementedError(
+            f"conv kernels: kshape={kshape} strides={strides} groups={groups} not taken")
     return _qconv(strides, x_q, wparam, eff_scale, eff_bias, kshape=kshape, pads=pads,
                   relu=relu, wfmt=wfmt)

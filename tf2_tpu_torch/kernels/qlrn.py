@@ -49,6 +49,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def max_channels() -> int:
+    """The most channels the kernel takes (one pixel's channels in one
+    block's shared memory), from the library built for the card."""
+    return _lib().tf2_qlrn_max_channels()
+
+
+def covers(c: int, max_c: int) -> bool:
+    """Does the kernel take rows of ``c`` channels, given the card's
+    ``max_channels()``?"""
+    return c <= max_c
+
+
 def _beta_is_075(beta: float) -> bool:
     return abs(beta - 0.75) < 1e-12
 
@@ -80,17 +92,16 @@ def qlrn_plain(x_q: torch.Tensor, *, radius: int, alpha: float, beta: float,
 def qlrn(x_q: torch.Tensor, *, radius: int, alpha: float, beta: float, bias: float,
          s_in: float, s_out: float) -> torch.Tensor:
     """x_q (..., C) int8 -> int8 of the same shape. Raises on a CUDA tensor
-    the kernel does not take (more channels than one block's shared memory
-    holds)."""
+    the kernel does not take (``covers``: more channels than one block's
+    shared memory holds)."""
     kw = dict(radius=radius, alpha=alpha, beta=beta, bias=bias, s_in=s_in, s_out=s_out)
     if x_q.device.type == "cpu":
         return qlrn_plain(x_q, **kw)
     c = x_q.shape[-1]
     m = x_q.numel() // c
     build.check_operands(x_q.device, x_q=(x_q, torch.int8, tuple(x_q.shape)))
-    if c > _lib().tf2_qlrn_max_channels():
-        raise ValueError(f"qlrn kernel: {c} channels, at most "
-                         f"{_lib().tf2_qlrn_max_channels()}")
+    if not covers(c, max_channels()):
+        raise ValueError(f"qlrn kernel: {c} channels, at most {max_channels()}")
     y = torch.empty_like(x_q)
     rc = _lib().tf2_qlrn(x_q.data_ptr(), y.data_ptr(), m, c, radius, build.f32(s_in),
                          build.f32(s_out), build.f32(alpha), build.f32(bias),

@@ -1,10 +1,13 @@
 """Runtime Engine: loads a quantized graph and its params onto a device,
 applies the load-time passes and runs the graph eagerly, layer by layer,
 each conv and dense layer, each LRN and each attention core in one of the
-CUDA kernels. SSD's box decode and NMS are plain PyTorch on the device
-(``kernels/detection.py``), as the reference's are XLA."""
+CUDA kernels, or, where the coverage plan made at load finds that no
+kernel takes a node, in its plain version on the card. SSD's box decode
+and NMS are plain PyTorch on the device (``kernels/detection.py``), as
+the reference's are XLA."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -15,7 +18,8 @@ from ..graph.ir import Graph, Node, TensorSpec
 from ..graph.optimize import (fuse_bottleneck_chains, fuse_lrn_quantize,
                               fuse_stem_quantize, hoist_input_quantize,
                               merge_sibling_1x1, pack_phase_stem, space_to_depth_stem)
-from ..kernels.qconv import covers
+from ..graph.shapes import activation_shapes
+from ..kernels import dispatch, qattention, qblocks, qconv, qlrn
 from ..transform import potq
 
 
@@ -56,7 +60,7 @@ def _predecode_fallback_weights(graph: Graph, params):
     names = set()
     for n in graph.nodes:
         if n.op in ("qconv2d", "qdense") and n.attrs.get("wfmt") == "pot4":
-            keep = len(n.inputs) == 1 if n.op == "qdense" else covers(
+            keep = len(n.inputs) == 1 if n.op == "qdense" else qconv.covers(
                 n.attrs["kshape"], n.attrs.get("strides", [1, 1]), n.attrs.get("groups", 1))
             if not (keep and np.prod(n.attrs["kshape"][:-1]) % 2 == 0):
                 names.add(n.name)
@@ -102,6 +106,19 @@ def _fuse_chains(graph: Graph, params):
                     lambda g: names - {n.name for n in g.nodes})
 
 
+@dataclasses.dataclass(frozen=True)
+class Limits:
+    """What the card's kernels take that a node's shapes alone do not say:
+    the most channels of a ``qlrn`` row and the shared memory a block of
+    the chain kernel may use."""
+    qlrn_channels: int
+    smem_per_block: int
+
+    @classmethod
+    def of_card(cls) -> "Limits":
+        return cls(qlrn.max_channels(), qblocks.SMEM_LIMIT)
+
+
 def _resolve_device(device: str | torch.device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -137,6 +154,11 @@ class Engine:
     stride-1 VALID conv (``graph/optimize.space_to_depth_stem``); off by
     default, as in the reference, and a no-op after ``phase_stem=True``,
     whose ``wpack2`` stem it does not match.
+
+    On the card the load ends with the coverage plan (``Engine.plan``): the
+    nodes no kernel takes, ``plain_nodes``, run their plain versions there,
+    as the reference runs them in XLA. On the CPU every node is plain and
+    ``plain_nodes`` is empty.
     """
 
     def __init__(self, graph: Graph, params: Mapping[str, np.ndarray],
@@ -158,9 +180,41 @@ class Engine:
         if optimize:
             graph, params = _space_to_depth(graph, params)
         self.graph = graph
+        self.plain_nodes = (self.plan(graph, params, Limits.of_card())
+                            if self.device.type == "cuda" else frozenset())
         self.params = {k: torch.as_tensor(np.asarray(v)).to(self.device)
                        for k, v in params.items()}
-        self._fn = execute(graph)
+        self._fn = execute(graph, plain_nodes=self.plain_nodes)
+
+    @staticmethod
+    def plan(graph: Graph, params, limits: Limits) -> frozenset[str]:
+        """The names of the nodes that no kernel takes, each asked of its
+        kernel's own predicate (the one its wrapper asks) on the shapes
+        ``activation_shapes`` gives: ``qconv.covers`` for a conv,
+        ``qattention.covers`` for an attention core, ``qlrn.covers`` and
+        ``qblocks.covers`` with the card's ``limits``. Dense layers and the
+        ``wpack2`` stem always have a kernel, and the int8 glue needs none
+        (the reference's XLA fallback, ``tf2_tpu/kernels/dispatch.py``,
+        made at load)."""
+        shapes = activation_shapes(graph, params)
+        rejected = set()
+        for n in graph.nodes:
+            if n.op == "qconv2d" and n.attrs.get("wfmt") != "wpack2":
+                takes = qconv.covers(n.attrs["kshape"], n.attrs.get("strides", [1, 1]),
+                                     n.attrs.get("groups", 1))
+            elif n.op == "qattention_core":
+                takes = qattention.covers(shapes[n.inputs[0]][1],
+                                          n.attrs["dim"] // n.attrs["heads"])
+            elif n.op == "qlrn":
+                takes = qlrn.covers(shapes[n.inputs[0]][-1], limits.qlrn_channels)
+            elif n.op == "qblockchain":
+                takes = qblocks.covers(shapes[n.inputs[0]], dispatch.chain_blocks(n, params),
+                                       limits.smem_per_block)
+            else:
+                continue
+            if not takes:
+                rejected.add(n.name)
+        return frozenset(rejected)
 
     def _inputs(self, inputs) -> dict[str, torch.Tensor]:
         if not inputs:
