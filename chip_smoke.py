@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero before the last line:
              on the card with 0 mismatches: every conv/dense node of the path
              at batch 64 and 1 on its real input, the same shapes with relu
              flipped on random inputs and with +-127 inputs on
-             max-magnitude weights, and ragged shapes. Times each kernel,
+             max-magnitude weights, and ragged shapes that with the zoo's
+             reach every variant of the conv plan (each printed). Times each
+             kernel (a conv's row names the plan it took),
              its plain version and a library yardstick (torch._int_mm for
              the GEMMs, bf16 F.conv2d for the convs) with CUDA events at
              the batch-64 shapes.
@@ -340,14 +342,6 @@ def _which_kernel(node, params, x_q) -> str:
     return used[0]
 
 
-def _taps(size: int, k: int, s: int, p0: int, out: int) -> tuple[int, int]:
-    """Along one axis of a conv: (input positions read, taps that fall
-    inside the input summed over the outputs)."""
-    idx = np.arange(out)[:, None] * s - p0 + np.arange(k)[None, :]
-    inside = (idx >= 0) & (idx < size)
-    return len(np.unique(idx[inside])), int(inside.sum())
-
-
 def _bound_ms(node, params, x_q, y) -> tuple[float, float]:
     """(bytes over the memory rate, operations over their peak rate) in ms
     for the function of the node on these inputs."""
@@ -386,26 +380,48 @@ def _work(node, params, x_q, y) -> tuple[float, float]:
     the weights, es and eb read once, the output written once; 2 operations
     per multiply-accumulate, counting only the taps inside the image (not
     those on the zero padding)."""
+    from tf2_tpu_torch.bench.conv_bound import conv_work
     from tf2_tpu_torch.kernels import qconv
 
     if node.op == "qblockchain":
         return _chain_work(node, params, x_q, y)
     if node.op == "qconv2d":
-        kh, kw, cin, cout = node.attrs["kshape"]
-        k = kh * kw * cin
-        b, h, w, _ = x_q.shape
+        kh, kw, _, _ = node.attrs["kshape"]
+        _, h, w, _ = x_q.shape
         s = node.attrs["strides"][0]
-        (ph0, ph1), (pw0, pw1) = qconv.resolve_pads(node.attrs.get("padding", "SAME"),
-                                                    kh, kw, s, s, h, w)
-        rows, taps_y = _taps(h, kh, s, ph0, y.shape[1])
-        cols, taps_x = _taps(w, kw, s, pw0, y.shape[2])
-        x_bytes, macs = b * rows * cols * cin, b * taps_y * taps_x * cin * cout
-    else:
-        k, cout = node.attrs["kshape"]
-        xs = x_q if isinstance(x_q, tuple) else (x_q,)  # a residual is read once too
-        x_bytes, macs = sum(x.numel() for x in xs), xs[0].numel() * cout
+        pads = qconv.resolve_pads(node.attrs.get("padding", "SAME"), kh, kw, s, s, h, w)
+        return conv_work(x_q.shape, node.attrs["kshape"], (s, s), pads, node.attrs["wfmt"],
+                         y.shape)
+    k, cout = node.attrs["kshape"]
+    xs = x_q if isinstance(x_q, tuple) else (x_q,)  # a residual is read once too
+    x_bytes, macs = sum(x.numel() for x in xs), xs[0].numel() * cout
     w_bytes = k * cout // 2 if node.attrs["wfmt"] == "pot4" else k * cout
     return x_bytes + w_bytes + 8 * cout + y.numel(), 2.0 * macs
+
+
+def _conv_plan(node, params, x_q):
+    """The conv kernel's launch plan for a qconv2d node's input, or None
+    where the node is a GEMM (1x1 stride 1) or no conv."""
+    from tf2_tpu_torch.kernels import qconv
+
+    if node.op != "qconv2d" or node.attrs.get("wfmt") == "wpack2":
+        return None
+    kshape = tuple(node.attrs["kshape"])
+    strides = tuple(node.attrs.get("strides", (1, 1)))
+    if kshape[:2] + strides == (1, 1, 1, 1):
+        return None
+    padding = node.attrs.get("padding", "SAME")
+    if not isinstance(padding, str):
+        padding = [tuple(p) for p in padding]
+    pads = qconv.resolve_pads(padding, *kshape[:2], *strides, x_q.shape[1], x_q.shape[2])
+    return qconv.launch_plan(x_q, params[node.params[0]], strides=strides, kshape=kshape,
+                             pads=pads, wfmt=node.attrs["wfmt"])
+
+
+def _taps(size: int, k: int, s: int, p0: int, out: int) -> tuple[int, int]:
+    from tf2_tpu_torch.bench.conv_bound import taps
+
+    return taps(size, k, s, p0, out)
 
 
 def _chain_work(node, params, x_q, y) -> tuple[float, float]:
@@ -521,7 +537,12 @@ def _random_like(rng, x_q):
 
 
 def _ragged_cases(rng, dev):
-    """Shapes off the main path: ragged M/N/K, cin 130, VALID padding."""
+    """Shapes off the main path: ragged M/N/K, cin 130, VALID padding; taps
+    that cross a K step (C 24, 48, 96, 112, 144), copy widths 8 and 4, a
+    K/2 not a multiple of 32, N 12 and 63 (SSD's heads), ResNet-50's stage 4
+    at batch 1 (the smallest grid), the full 224x224 stem at batch 1, SSD's
+    stem and a pot4 conv on 6 channels (the staged gather): together every
+    variant the conv plan (kernels/qconv.py: plan) picks on the card."""
     from tf2_tpu_torch.graph import Node
     from tf2_tpu_torch.transform import potq
 
@@ -531,7 +552,22 @@ def _ragged_cases(rng, dev):
             (2, 13, 13, 24, 32, 3, 2, "VALID", "int8"),
             (2, 15, 15, 32, 64, 3, 1, "SAME", "pot4"),
             (3, 7, 7, 48, 200, 1, 1, "SAME", "pot4"),
-            (1, 28, 28, 3, 64, 7, 2, "SAME", "int8")]:
+            (1, 28, 28, 3, 64, 7, 2, "SAME", "int8"),
+            (2, 14, 14, 48, 64, 3, 1, "SAME", "pot4"),
+            (2, 14, 14, 96, 128, 3, 1, "SAME", "pot4"),
+            (2, 14, 14, 112, 224, 3, 1, "SAME", "pot4"),
+            (2, 14, 14, 144, 288, 3, 1, "SAME", "pot4"),
+            (2, 14, 14, 24, 64, 5, 1, "SAME", "pot4"),
+            (2, 14, 14, 16, 48, 5, 1, "SAME", "pot4"),
+            (2, 8, 8, 256, 12, 3, 1, "SAME", "pot4"),
+            (2, 8, 8, 256, 63, 3, 1, "SAME", "pot4"),
+            (2, 4, 4, 256, 63, 3, 1, "SAME", "int8"),
+            (1, 7, 7, 512, 512, 3, 1, "SAME", "pot4"),
+            (64, 28, 28, 128, 128, 3, 1, "SAME", "pot4"),
+            (32, 28, 28, 64, 64, 3, 1, "SAME", "pot4"),
+            (1, 224, 224, 3, 64, 7, 2, "SAME", "int8"),
+            (1, 256, 256, 3, 32, 3, 2, "SAME", "int8"),
+            (3, 11, 10, 6, 30, 3, 2, "SAME", "pot4")]:
         k = kk * kk * cin
         if wfmt == "pot4":
             wp = potq.pack_codes(rng.integers(0, 16, (k, cout)).astype(np.uint8))
@@ -678,6 +714,9 @@ class KernelStats:
         else:
             shape = {"kshape": node.attrs["kshape"], "strides": node.attrs.get("strides"),
                      "wfmt": node.attrs["wfmt"], "residual": isinstance(x_q, tuple)}
+            plan = _conv_plan(node, params, _main_input(x_q))
+            if plan is not None:
+                shape["plan"] = plan.name
         self.add(kernel, {"node": node.name, "x": list(_main_input(x_q).shape), **shape},
                  ms, plain_ms, library_ms, bytes_ms, ops_ms, mult, total)
 
@@ -744,11 +783,17 @@ def phase_kernels(engines, images, stats, timed: bool, total: bool = True):
 def phase_ragged_kernels(stats, dev):
     """The conv/GEMM kernels on shapes off the main paths."""
     rng = np.random.default_rng(4)
+    variants = set()
     for node, params, x in _ragged_cases(rng, dev):
         kernel = _which_kernel(node, params, x)
         for n in (node, _flip_relu(node)):
             stats.compare(kernel, n, params, x, "ragged")
+        plan = _conv_plan(node, params, x)
+        if plan is not None:
+            variants.add(plan.variant)
+            log(f"ragged {node.name}: {plan.name}")
     stats.raise_on_mismatch("kernels disagree with their plain versions")
+    log(f"ragged conv variants: {sorted(variants)}")
     log("kernels: " + ", ".join(f"{k} {v['checks']} checks max |err| {v['max_abs_err']}"
                                 for k, v in stats.k.items()))
 

@@ -62,6 +62,31 @@ def test_qmatmul_kernels_match_plain(cuda, m, k, n, relu):
     (2, 9, 9, 130, 40, 3, 1, "SAME", "pot4"),
     (2, 13, 13, 24, 32, 3, 2, "VALID", "int8"),
     (2, 16, 16, 12, 64, 4, 1, "VALID", "int8"),
+    # taps crossing a K step (C not a multiple of 64), copy widths 8 and 4
+    (2, 14, 14, 48, 64, 3, 1, "SAME", "pot4"),
+    (2, 14, 14, 96, 128, 3, 1, "SAME", "pot4"),
+    (2, 14, 14, 112, 224, 3, 1, "SAME", "pot4"),
+    (2, 14, 14, 144, 288, 3, 1, "SAME", "pot4"),
+    (2, 14, 14, 24, 64, 5, 1, "SAME", "pot4"),      # K/2 = 300: 4-byte copies
+    (2, 14, 14, 16, 48, 5, 1, "SAME", "pot4"),      # K/2 = 200, not a multiple of 32
+    # SSD's heads: N = 12 and 63 (unaligned weight rows)
+    (2, 8, 8, 256, 12, 3, 1, "SAME", "pot4"),
+    (2, 8, 8, 256, 63, 3, 1, "SAME", "pot4"),
+    (2, 4, 4, 256, 63, 3, 1, "SAME", "int8"),
+    # ResNet-50 stage 4 at batch 1, the smallest grid
+    (1, 7, 7, 512, 512, 3, 1, "SAME", "pot4"),
+    # the tiles 256x128, 128x128 and 128x64 (enough blocks for the SMs)
+    (64, 28, 28, 128, 128, 3, 1, "SAME", "pot4"),
+    (64, 56, 56, 64, 128, 3, 2, "SAME", "pot4"),
+    (64, 14, 14, 256, 256, 3, 1, "SAME", "int8"),
+    (32, 28, 28, 64, 64, 3, 1, "SAME", "pot4"),
+    (64, 14, 14, 512, 512, 3, 2, "SAME", "pot4"),
+    # the staged gather: the full 224x224 stem at batch 1, SSD's stem,
+    # SqueezeNet's VALID stem, and pot4 on 6 channels
+    (1, 224, 224, 3, 64, 7, 2, "SAME", "int8"),
+    (1, 256, 256, 3, 32, 3, 2, "SAME", "int8"),
+    (2, 224, 224, 3, 64, 3, 2, "VALID", "int8"),
+    (3, 11, 10, 6, 30, 3, 2, "SAME", "pot4"),
 ])
 @pytest.mark.parametrize("relu", [False, True])
 def test_qconv_kernels_match_plain(cuda, b, h, w, cin, cout, kh, stride, padding,
