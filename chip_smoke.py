@@ -17,21 +17,32 @@ Phases, in order; any failure exits non-zero before the last line:
              at batch 64 and 1 on its real input, the same shapes with relu
              flipped on random inputs and with +-127 inputs on
              max-magnitude weights, and ragged shapes that with the zoo's
-             reach every variant of the conv plan (each printed). Times each
+             reach every variant of the conv plan (each printed); ragged
+             int8 GEMMs (RAGGED_GEMMS) with the weight prepared K-major
+             and given as it is (prepared on the call, counted), which with
+             the zoo's shapes (phases 4-10) reach every variant of the int8
+             GEMM's plan (tiles, split-K, copy widths, residual; each
+             printed, all required after phase 10). Times each
              kernel (a conv's row names the plan it took),
              its plain version and a library yardstick (torch._int_mm for
              the GEMMs, bf16 F.conv2d for the convs) with CUDA events at
              the batch-64 shapes.
  5. main     Engine.run at batch 64 and 1 with launch counts per forward
-             (33 / 1 / 13 / 7 / 0 / 0 / 0 / 0 / 0), finite (B, 1000) logits,
+             (33 / 1 / 13 / 7 / 0 / 0 / 0 / 0 / 0), no weight prepared on
+             the forward (every Engine here: the int8 GEMMs' and chains'
+             weights are K-major from the load), finite (B, 1000) logits,
              every node equal to the plain path on the card and, at batch 1,
              to the Engine on the CPU; Engine.benchmark img/s and latency.
  6. chains   Engine(block_fusion=True) at batch 64 and 1 from the same
              artifact: every qblockchain node against the plain chain with
              0 mismatches on its real input, with the adds' relu flipped,
-             with +-127 inputs on +-127 weights, and ragged chains; each
-             chain timed at batch 64 (kernel, plain, bound) and its kernel
-             at batch 1.
+             with +-127 inputs on +-127 weights, and ragged chains on the
+             plans the wrapper picks; two-block chains on every kind of
+             plan given to it (GIVEN_CHAIN_PLANS: bands and whole images,
+             clusters of 1-16 CTAs, G > 1, MMA widths 32 and 64, narrow
+             bands, ragged channels), relu on and off and +-127; the plans
+             taken printed, every kind required; each chain timed at batch
+             64 (kernel, plain, bound) and its kernel at batch 1.
  7. fused    Engine(block_fusion=True).run at batch 64 and 1: launch counts
              per forward (6 / 1 / 0 / 7 / 4 / 0 / 0 / 0 / 0), every node
              equal to the plain path and, at batch 1, to the fused Engine on
@@ -193,6 +204,25 @@ ZOO_LAUNCHES = {  # model -> {option: launches}
 }
 VIT_LAUNCHES = _launches(0, 50, 0, 0, 0, 0, 12, 0, 0)
 SSD_LAUNCHES = _launches(0, 0, 8, 6, 0, 0, 0, 0, 0)
+# ragged int8 GEMMs (m, k, n, byte offset of x, residual): with the zoo's
+# shapes they reach every tile of the GEMM plan (128x128, 128x64, 64x128,
+# 64x64), split-K and not, x copied 16, 8, 4 bytes or padded, output widths
+# 16, 8, 4, 2, 1 (kernels/shift_matmul.py: plan)
+RAGGED_GEMMS = [(2048, 192, 1024, 0, False), (197, 768, 2304, 0, True),
+                (16, 64, 8464, 0, True), (300, 200, 130, 0, True), (33, 196, 99, 0, False),
+                (33, 50, 20, 0, True), (40, 64, 48, 4, False), (1, 3072, 768, 0, True)]
+# chains on given plans ((b, h, w, cin, cm, cout, down), (g, r, wc, c, bn)):
+# bands and whole images, clusters of 1 to 16 CTAs, MMA widths 32 and 64,
+# narrow bands, ragged channels (kernels/qblocks.py: make_plan)
+GIVEN_CHAIN_PLANS = [((2, 9, 13, 48, 64, 64, True), (1, 2, 13, 1, 64)),
+                     ((2, 9, 13, 64, 40, 64, False), (1, 3, 13, 1, 32)),
+                     ((1, 12, 30, 32, 32, 32, False), (1, 1, 7, 1, 32)),
+                     ((2, 14, 14, 64, 64, 128, True), (1, 4, 14, 2, 32)),
+                     ((3, 7, 7, 256, 256, 256, False), (1, 7, 7, 4, 64)),
+                     ((5, 7, 7, 512, 512, 512, False), (2, 7, 7, 8, 64)),
+                     ((4, 8, 8, 64, 32, 64, False), (3, 8, 8, 1, 32)),
+                     ((1, 7, 7, 512, 512, 512, False), (1, 7, 7, 16, 32)),
+                     ((2, 6, 6, 40, 16, 40, False), (1, 6, 6, 1, 32))]
 # ragged stems: (b, h, w, cin, cout, k, padding)
 RAGGED_STEMS = [(3, 37, 41, 1, 16, 5, "SAME"), (3, 33, 19, 2, 24, 5, "VALID"),
                 (1, 30, 30, 4, 130, 7, "SAME"), (3, 45, 31, 3, 64, 7, "SAME"),
@@ -488,6 +518,7 @@ def _library(node, params, x_q):
         x2 = _main_input(x_q).reshape(-1, node.attrs["kshape"][0])
         w2 = w if node.attrs["wfmt"] == "int8" else potq.pot_decode(
             potq.unpack_codes(w, node.attrs["kshape"][0]))
+    w2 = w2.contiguous()  # the Engine's int8 weights are K-major views
     return lambda: torch._int_mm(x2, w2)
 
 
@@ -634,16 +665,79 @@ def _chain_adversarial(node, params, rng, x_q, extreme: bool):
                                          size=tuple(x_q.shape))).to(dev)
 
 
+def _note_chain_plans(stats, x, blocks):
+    from tf2_tpu_torch.kernels import qblocks
+
+    b, h, w, cin = x.shape
+    for blk in blocks:
+        cm, cout = blk["w1"].shape[1], blk["w3"].shape[1]
+        p = qblocks.launch_plan(b, h, w, cin, cm, cout, "wd" in blk, x.device)
+        stats.chain_plans.add((p.whole, p.g, p.c, p.bn, "wd" in blk))
+        cin = cout
+
+
+def _chain_blocks(rng, dev, cin, cm, cout, nblocks, down, relu, extreme=False):
+    """Random blocks (``_ragged_chains``'s scales), or with ``extreme`` +-127
+    weights and es that clip both ends."""
+    blocks = []
+    for i in range(nblocks):
+        k = cin if i == 0 else cout
+        convs = [("1", k, cm), ("2", 9 * cm, cm), ("3", cm, cout)]
+        if down and i == 0:
+            convs.append(("d", k, cout))
+        blk = {"sa_over_so": float(rng.uniform(0.5, 1.5)),
+               "sb_over_so": float(rng.uniform(0.5, 1.5)), "relu": relu}
+        for key, kk, n in convs:
+            wshape = (3, 3, cm, cm) if key == "2" else (kk, n)
+            if extreme:
+                blk["w" + key] = rng.choice(np.array([127, -127], np.int8), size=wshape)
+                blk["es" + key] = (rng.uniform(0.5, 8.0, n) / (127 * np.sqrt(kk))).astype(np.float32)
+            else:
+                blk["w" + key] = rng.integers(-127, 128, wshape, dtype=np.int8)
+                blk["es" + key] = (rng.uniform(0.5, 2.0, n) * 40
+                                   / (127 * 127 * np.sqrt(kk))).astype(np.float32)
+            blk["eb" + key] = rng.normal(0, 3, n).astype(np.float32)
+        blocks.append({k_: torch.as_tensor(v).to(dev) if isinstance(v, np.ndarray) else v
+                       for k_, v in blk.items()})
+    return blocks
+
+
+def _given_plan_chains(stats, rng, dev):
+    """Two-block chains on each plan of GIVEN_CHAIN_PLANS (given to the
+    wrapper, not picked): relu on and off on random inputs, and +-127
+    inputs on +-127 weights, against the plain chain."""
+    from tf2_tpu_torch.kernels import qblocks
+
+    chosen = qblocks.launch_plan
+    try:
+        for (b, h, w, cin, cm, cout, down), given in GIVEN_CHAIN_PLANS:
+            p = qblocks.make_plan(b, h, w, cm, *given)
+            qblocks.launch_plan = lambda *a, p=p: p
+            for relu, extreme in ((True, False), (False, False), (True, True)):
+                blocks = _chain_blocks(rng, dev, cin, cm, cout, 2, down, relu, extreme)
+                x = torch.as_tensor(rng.choice(np.array([127, -127], np.int8), size=(b, h, w, cin))
+                                    if extreme else rng.integers(-127, 128, (b, h, w, cin),
+                                                                 dtype=np.int8)).to(dev)
+                stats.check("qblockchain", f"{b}x{h}x{w}x{cin} cm{cm} {p.name} relu={relu} "
+                            f"extreme={extreme}", qblocks.qblockchain(x, blocks),
+                            qblocks.qblockchain_plain(x, blocks))
+            stats.chain_plans.update({(p.whole, p.g, p.c, p.bn, d) for d in (down, False)})
+            log(f"given chain plan {b}x{h}x{w}x{cin} cm{cm} cout{cout}: {p.name}")
+    finally:
+        qblocks.launch_plan = chosen
+
+
 def _ragged_chains(rng, dev):
-    """Chains off the main path: bands that do not divide H, Cm not a
-    multiple of 16, Cin != Cout with a downsample, 1-3 blocks with the
-    adds' relu on and off, stage 4 at batch 1. On 132 SMs the first three
-    take bands of 2, 2 and 5 rows. -> (blocks, x, name)."""
+    """Chains off the main path, each block on the plan the wrapper picks:
+    bands that do not divide H, Cm not a multiple of 16, Cin != Cout with a
+    downsample, 1-3 blocks with the adds' relu on and off, stage 4 at batch
+    1, clusters of whole images. -> (blocks, x, name)."""
     cases = []
     for b, h, w, cin, cm, cout, nblocks, down in [
             (64, 9, 13, 48, 40, 64, 2, True), (64, 9, 13, 64, 40, 64, 1, False),
             (96, 12, 12, 32, 32, 96, 3, True), (3, 8, 8, 64, 16, 64, 3, False),
-            (1, 7, 7, 2048, 512, 2048, 2, False)]:
+            (1, 7, 7, 2048, 512, 2048, 2, False), (5, 7, 7, 512, 512, 512, 2, False),
+            (6, 14, 14, 256, 256, 256, 1, False)]:
         for relu in (False, True):
             blocks = []
             for i in range(nblocks):
@@ -676,6 +770,30 @@ class KernelStats:
                          "library_ms": 0.0, "bound_ms": 0.0, "bytes_bound_ms": 0.0}
                   for name in KERNELS}
         self.mismatches = []
+        self.gemm_plans = set()   # (tile, split, avec, ovec, residual, prepared)
+        self.chain_plans = set()  # (whole, g, c, bn, down)
+
+    def note_plans(self, kernel, node, params, x_q):
+        """Record the plan variant of an int8 GEMM or chain call."""
+        from tf2_tpu_torch.kernels import dispatch, qblocks, shift_matmul
+
+        if kernel == "qmatmul_int8":
+            x = _main_input(x_q)
+            x2 = x.reshape(-1, x.shape[-1])
+            residual = (x_q[1], 1.0) if isinstance(x_q, tuple) else None
+            w = params[node.params[0]]
+            n = w.shape[-1]
+            w2 = w.reshape(-1, n)
+            p = shift_matmul.launch_plan(x2, n, residual)
+            self.gemm_plans.add((p.tile, p.splits > 1, p.avec, p.ovec, residual is not None,
+                                 shift_matmul.prepared_ld(w2) is not None))
+        elif kernel == "qblockchain":
+            b, h, w, cin = x_q.shape
+            for blk in dispatch.chain_blocks(node, params):
+                cm, cout = blk["w1"].shape[1], blk["w3"].shape[1]
+                p = qblocks.launch_plan(b, h, w, cin, cm, cout, "wd" in blk, x_q.device)
+                self.chain_plans.add((p.whole, p.g, p.c, p.bn, "wd" in blk))
+                cin = cout
 
     def check(self, kernel, what, y, yp):
         """Record the kernel's output ``y`` against the plain version's."""
@@ -693,6 +811,7 @@ class KernelStats:
             raise RuntimeError(f"{what}:\n" + "\n".join(self.mismatches))
 
     def compare(self, kernel, node, params, x_q, what):
+        self.note_plans(kernel, node, params, x_q)
         return self.check(kernel, f"{node.name} {what}", _call(node, params, x_q),
                           _call(node, params, x_q, plain=True))
 
@@ -780,9 +899,42 @@ def phase_kernels(engines, images, stats, timed: bool, total: bool = True):
     return plain_envs
 
 
+def _gemm_variants(stats, rng, dev):
+    """qmatmul_int8 on RAGGED_GEMMS, each with its weight prepared (K-major,
+    as the Engine holds it) and as given (prepared on the call, counted),
+    against its plain version; the plans are printed and recorded."""
+    from tf2_tpu_torch import kernels
+    from tf2_tpu_torch.kernels import shift_matmul
+
+    for m, k, n, off, resid in RAGGED_GEMMS:
+        xs = torch.zeros(m * k + off, dtype=torch.int8, device=dev)
+        xs[off:] = torch.as_tensor(rng.integers(-127, 128, m * k, dtype=np.int8)).to(dev)
+        x = xs[off:].view(m, k)
+        w = torch.as_tensor(rng.integers(-127, 128, (k, n), dtype=np.int8)).to(dev)
+        es = torch.as_tensor((rng.uniform(0.5, 3.0, n) / (127 * np.sqrt(k)))
+                             .astype(np.float32)).to(dev)
+        eb = torch.as_tensor(rng.normal(0, 5, n).astype(np.float32)).to(dev)
+        residual = None
+        if resid:
+            residual = (torch.as_tensor(rng.integers(-127, 128, (m, n), dtype=np.int8)).to(dev),
+                        0.61)
+        p = shift_matmul.launch_plan(x, n, residual)
+        for relu, wq in ((True, shift_matmul.prepare_weight(w)), (False, w)):
+            prepared = shift_matmul.prepared_ld(wq) is not None
+            kernels.reset_launch_counts()
+            y = shift_matmul.qmatmul_int8(x, wq, es, eb, relu, residual)
+            if kernels.prepared_per_call()["qmatmul_int8"] != (0 if prepared else 1):
+                raise RuntimeError(f"qmatmul_int8 {m}x{k}x{n}: per-call preparation miscounted")
+            stats.check("qmatmul_int8", f"ragged {m}x{k}x{n} {p.name} prepared={prepared}", y,
+                        shift_matmul.qmatmul_int8_plain(x, w, es, eb, relu, residual))
+            stats.gemm_plans.add((p.tile, p.splits > 1, p.avec, p.ovec, resid, prepared))
+        log(f"ragged qmatmul_int8 {m}x{k}x{n} residual={resid}: {p.name}")
+
+
 def phase_ragged_kernels(stats, dev):
     """The conv/GEMM kernels on shapes off the main paths."""
     rng = np.random.default_rng(4)
+    _gemm_variants(stats, rng, dev)
     variants = set()
     for node, params, x in _ragged_cases(rng, dev):
         kernel = _which_kernel(node, params, x)
@@ -870,6 +1022,16 @@ def phase_chains(engines, images, stats):
     for blocks, x, name in _ragged_chains(rng, images[1].device):
         stats.check("qblockchain", name, qblocks.qblockchain(x, blocks),
                     qblocks.qblockchain_plain(x, blocks))
+        _note_chain_plans(stats, x, blocks)
+    _given_plan_chains(stats, rng, images[1].device)
+    log("chain plans taken (whole, G, C, BN, downsample): "
+        + ", ".join(map(str, sorted(stats.chain_plans))))
+    kinds = {(whole, c > 1, g > 1, bn, down) for whole, g, c, bn, down in stats.chain_plans}
+    for need in ({k[0] for k in kinds} == {False, True}, {k[1] for k in kinds} == {False, True},
+                 True in {k[2] for k in kinds}, {k[3] for k in kinds} == {32, 64},
+                 {k[4] for k in kinds} == {False, True}):
+        if not need:
+            raise RuntimeError(f"chain plan variants not all reached: {sorted(kinds)}")
     stats.raise_on_mismatch("the chain kernel disagrees with the plain chain")
     log(f"chains: {stats.k['qblockchain']['checks']} checks, max |err| "
         f"{stats.k['qblockchain']['max_abs_err']}")
@@ -895,6 +1057,9 @@ def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as
         if counts != expected:
             raise RuntimeError(f"{label} b{b}: launches per forward {counts}, "
                                f"expected {expected}")
+        if any(kernels.prepared_per_call().values()):
+            raise RuntimeError(f"{label} b{b}: weights prepared on a forward: "
+                               f"{kernels.prepared_per_call()}")
         if b == 64:
             launches = counts
         all_logits[b] = logits
@@ -1065,6 +1230,21 @@ def phase_vit(name, images, stats):
     launches, summary, _ = phase_main(name, engines, cpu_engine, images, envs, VIT_LAUNCHES)
     log(f"{name}: kernels " + ", ".join(f"{k} {v['checks']} checks" for k, v in stats.k.items()))
     return launches, summary
+
+
+def check_gemm_variants(stats):
+    """After phases 4-10: the int8 GEMM calls have reached every tile of
+    its plan, split-K and not, each copy width of x (16, 8, 4, padded) and
+    of the output (16, 8, 4, 2, 1), the residual on and off, and a
+    prepared and a per-call weight."""
+    variants = sorted(stats.gemm_plans)
+    log("qmatmul_int8 plans taken (tile, split, x copy, out copy, residual, prepared): "
+        + ", ".join(map(str, variants)))
+    want = [set(range(4)), {False, True}, {0, 4, 8, 16}, {1, 2, 4, 8, 16}, {False, True},
+            {False, True}]
+    for i, need in enumerate(want):
+        if {v[i] for v in variants} != need:
+            raise RuntimeError(f"qmatmul_int8 plan variants not all reached: {variants}")
 
 
 def phase_vit384(stats):
@@ -1430,6 +1610,7 @@ def main() -> int:
         vit_launches, zoo[name] = phase_vit(name, images, stats)
         if name == "vit_b16":
             launches["qattention"] = vit_launches["qattention"]
+    check_gemm_variants(stats)
     zoo["ssd"] = phase_ssd(stats)
     zoo["vit_b16_cls_384"] = phase_vit384(stats)
     zoo["coverage"] = phase_coverage()

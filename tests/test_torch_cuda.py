@@ -140,6 +140,7 @@ def test_engine_every_node_equals_plain(cuda):
                                        "qconv_s1": 1, "qconv_s2": 7, "qblockchain": 0,
                                        "qlrn": 0, "qattention": 0,
                                        "qconv_s2x1": 0, "qstem": 0}
+    assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
@@ -174,17 +175,16 @@ def _chain(rng, dev, cin, cm, cout, nblocks, down, relu):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,cin,cm,cout,nblocks,down", [
-    (64, 9, 13, 48, 40, 64, 2, True),       # bands of 2 rows on 9; Cm % 16 != 0
+    (64, 9, 13, 48, 40, 64, 2, True),       # Cm % 16 != 0
     (64, 9, 13, 64, 40, 64, 1, False),
-    (96, 12, 12, 32, 32, 96, 3, True),      # bands of 5 on 12; Cin != Cout, downsample
+    (96, 12, 12, 32, 32, 96, 3, True),      # Cin != Cout, downsample
     (3, 8, 8, 64, 16, 64, 3, False),
     (1, 7, 7, 2048, 512, 2048, 2, False),   # stage 4 at batch 1
 ])
 @pytest.mark.parametrize("relu", [False, True])
 def test_qblockchain_kernel_matches_plain(cuda, b, h, w, cin, cm, cout, nblocks, down, relu):
-    """The chain kernel equals the plain chain on ragged chains. The band
-    heights in the comments are those ``band_rows`` picks on 132 SMs (an
-    H100 SXM); tests/test_torch_qblocks.py pins them."""
+    """The chain kernel equals the plain chain on ragged chains, each block
+    on the plan ``launch_plan`` picks on this card."""
     rng = np.random.default_rng(cin + cm + nblocks)
     blocks = _chain(rng, cuda, cin, cm, cout, nblocks, down, relu)
     x = torch.as_tensor(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)).to(cuda)
@@ -229,6 +229,7 @@ def test_block_fused_engine_every_node_equals_plain(cuda):
                                        "qconv_s1": 0, "qconv_s2": 7, "qblockchain": 4,
                                        "qlrn": 0, "qattention": 0,
                                        "qconv_s2x1": 0, "qstem": 0}
+    assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
@@ -290,6 +291,99 @@ def test_qlrn_kernel_refuses_too_many_channels(cuda):
     x = torch.zeros((2, 9000), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="channels"):
         qlrn.qlrn(x, radius=1, alpha=2e-4, beta=0.75, bias=1.0, s_in=0.03, s_out=0.03)
+
+
+# (m, k, n, byte offset of x in its storage, residual, the plan's name):
+# every tile, split-K and not, each copy width of x (16, 8, 4, padded) and
+# of the output (16, 8, 4, 2, 1)
+GEMM_PLANS = [
+    (4096, 256, 1024, 0, True, "128x128 a16 o16"),
+    (2048, 192, 1024, 0, False, "128x128 a16 o16"),
+    (197, 768, 2304, 0, True, "128x64 a16 o16 split3"),
+    (16, 64, 8464, 0, False, "64x128 a16 o16"),
+    (64, 2048, 1000, 0, True, "64x64 a16 o8 split8"),
+    (300, 200, 130, 0, True, "64x64 a8 o2"),
+    (33, 196, 99, 0, False, "64x64 a4 o1"),
+    (33, 50, 20, 0, True, "64x64 apad o4"),
+    (40, 64, 48, 4, False, "64x64 a4 o16"),
+    (1, 3072, 768, 0, True, "64x64 a16 o16 split12"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,x_offset,resid,name", GEMM_PLANS)
+@pytest.mark.parametrize("prepared", [True, False])
+def test_qmatmul_int8_plan_variants(cuda, m, k, n, x_offset, resid, name, prepared):
+    """Each variant of the int8 GEMM's plan equals the plain version, with
+    the weight prepared (K-major, as the Engine holds it) or prepared by
+    the wrapper on the call (counted)."""
+    rng = np.random.default_rng(m + k + n)
+    x, _, w, _, eb = _gemm(rng, m, k, n)
+    es = (rng.uniform(0.5, 3.0, n) / (127 * np.sqrt(k))).astype(np.float32)
+    xs = torch.zeros(m * k + x_offset, dtype=torch.int8, device=cuda)
+    xs[x_offset:] = torch.as_tensor(x.reshape(-1)).to(cuda)
+    x = xs[x_offset:].view(m, k)
+    w, es, eb = _tensors(cuda, w, es, eb)
+    residual = None
+    if resid:
+        residual = (torch.as_tensor(rng.integers(-127, 128, (m, n), dtype=np.int8)).to(cuda), 0.61)
+    wq = shift_matmul.prepare_weight(w) if prepared else w
+    assert (shift_matmul.prepared_ld(wq) is not None) == prepared
+    assert shift_matmul.launch_plan(x, n, residual).name == name
+    kernels.reset_launch_counts()
+    got = shift_matmul.qmatmul_int8(x, wq, es, eb, True, residual)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["qmatmul_int8"] == 1
+    assert kernels.prepared_per_call()["qmatmul_int8"] == (0 if prepared else 1)
+    assert torch.equal(got, shift_matmul.qmatmul_int8_plain(x, w, es, eb, True, residual))
+    assert torch.equal(wq, w)
+
+
+# (b, h, w, cin, cm, cout, down, the plan: g, r, wc, c, bn): bands and whole
+# images, clusters of 1 to 16 CTAs, MMA widths 32 and 64, narrow bands,
+# ragged channels (Cm and Cout not multiples of 16, Cin padded)
+CHAIN_PLANS = [
+    ((2, 9, 13, 48, 64, 64, True), (1, 2, 13, 1, 64)),
+    ((2, 9, 13, 64, 40, 64, False), (1, 3, 13, 1, 32)),
+    ((1, 12, 30, 32, 32, 32, False), (1, 1, 7, 1, 32)),
+    ((2, 14, 14, 64, 64, 128, True), (1, 4, 14, 2, 32)),
+    ((3, 7, 7, 256, 256, 256, False), (1, 7, 7, 4, 64)),
+    ((5, 7, 7, 512, 512, 512, False), (2, 7, 7, 8, 64)),
+    ((4, 8, 8, 64, 32, 64, False), (3, 8, 8, 1, 32)),
+    ((1, 7, 7, 512, 512, 512, False), (1, 7, 7, 16, 32)),
+    ((2, 6, 6, 40, 16, 40, False), (1, 6, 6, 1, 32)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,plan", CHAIN_PLANS)
+@pytest.mark.parametrize("relu", [False, True])
+def test_qblockchain_plan_variants(cuda, monkeypatch, shape, plan, relu):
+    """The chain kernel on each kind of plan (given, not picked), two
+    blocks, equal to the plain chain; weights prepared on the call the
+    first time (counted), prepared beforehand the second."""
+    b, h, w, cin, cm, cout, down = shape
+    rng = np.random.default_rng(sum(shape))
+    blocks = _chain(rng, cuda, cin, cm, cout, 2, down, relu)
+    x = torch.as_tensor(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)).to(cuda)
+    p = qblocks.make_plan(b, h, w, cm, *plan)
+    assert p.smem <= qblocks.SMEM_LIMIT
+    monkeypatch.setattr(qblocks, "launch_plan", lambda *a: p)
+    want = qblocks.qblockchain_plain(x, blocks)
+    kernels.reset_launch_counts()
+    got = qblocks.qblockchain(x, blocks)
+    torch.cuda.synchronize()
+    assert kernels.prepared_per_call()["qblockchain"] == (7 if down else 6)
+    assert got.shape == (b, h, w, cout) and torch.equal(got, want)
+    for blk in blocks:
+        for key in ("w1", "w3", "wd"):
+            if key in blk:
+                blk[key] = shift_matmul.prepare_weight(blk[key])
+        blk["w2"] = qblocks.prepare_w2(blk["w2"])
+    kernels.reset_launch_counts()
+    assert torch.equal(qblocks.qblockchain(x, blocks), want)
+    assert kernels.prepared_per_call()["qblockchain"] == 0
+    assert kernels.launch_counts()["qblockchain"] == 1
 
 
 @pytest.mark.cuda
@@ -398,6 +492,7 @@ def test_vit_engine_every_node_equals_plain(cuda, name, weight_bits):
                                        "qconv_s1": 0, "qconv_s2": 0, "qblockchain": 0,
                                        "qlrn": 0, "qattention": 2,
                                        "qconv_s2x1": 0, "qstem": 0}
+    assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
@@ -434,6 +529,7 @@ def test_zoo_engines_every_node_equals_plain(cuda, name, image, launches):
         logits[merge] = eng.run(image=x)
         if not merge:
             assert kernels.launch_counts() == launches
+        assert set(kernels.prepared_per_call().values()) == {0}
         _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
         _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
         for n in eng.graph.nodes:

@@ -108,24 +108,29 @@ def test_plain_chain_matches_pallas_kernel():
 
 
 def test_kernel_coverage_and_band_rows():
-    """The chain kernel's shared-memory rule (not the TPU's VMEM rule): a
-    full-width stage fits at any band height the wrapper picks; a chain
-    whose band of one row overflows, an identity block that changes the
-    channel count, or a block that does not read its predecessor's output
-    is refused."""
+    """The chain kernel's shared-memory rule (not the TPU's VMEM rule): every
+    ResNet-50 block shape at batch 64 and 1 has a launch plan (whole images
+    or bands a cluster) whose shared memory fits; a chain whose smallest
+    piece overflows, an identity block that changes the channel count, or a
+    block that does not read its predecessor's output is refused."""
     rng = np.random.default_rng(0)
     stage4 = [_mk_block(rng, 2048, 512, 2048) for _ in range(2)]
     assert qblocks.covers((1, 7, 7, 2048), stage4)
-    assert qblocks.band_rows(1, 7, 7, 512, sms=132) == 1
-    assert qblocks.band_rows(64, 56, 56, 64, sms=132) == qblocks.MAX_BAND
-    for b, h, cm in [(64, 56, 64), (64, 28, 128), (64, 14, 256), (64, 7, 512), (1, 56, 64)]:
-        r = qblocks.band_rows(b, h, h, cm, sms=132)
-        assert qblocks.smem_bytes(h, h, cm, r) <= qblocks.SMEM_LIMIT
-    # the ragged chains of the card tests and chip_smoke.py: bands that do
-    # not divide the image's height
-    assert qblocks.band_rows(64, 9, 13, 40, sms=132) == 2
-    assert qblocks.band_rows(96, 12, 12, 32, sms=132) == 5
-    assert not qblocks.covers((1, 300, 300, 64), [_mk_block(rng, 64, 256, 64)])
+    for b in (64, 1):
+        for h, cin, cm, cout, down in [(56, 64, 64, 256, True), (56, 256, 64, 256, False),
+                                       (28, 512, 128, 512, False), (14, 1024, 256, 1024, False),
+                                       (7, 2048, 512, 2048, False)]:
+            p = qblocks.plan(b, h, h, cin, cm, cout, down, sms=132, max_cluster=16)
+            assert p.smem == qblocks.smem_bytes(h, h, cm, p.g, p.r, p.wc, p.bn)
+            assert p.smem <= qblocks.SMEM_LIMIT and p.c <= 16
+    # the ragged chains of the card tests and chip_smoke.py
+    for b, h, w, cm in [(64, 9, 13, 40), (96, 12, 12, 32), (3, 8, 8, 16), (1, 7, 7, 512)]:
+        assert qblocks.plan(b, h, w, 64, cm, 64, True).smem <= qblocks.SMEM_LIMIT
+    # a wide image takes bands narrower than a row
+    assert qblocks.covers((1, 300, 300, 64), [_mk_block(rng, 64, 256, 64)])
+    assert not qblocks.plan(1, 300, 300, 64, 256, 64, False).whole
+    huge = {"w1": np.empty((64, 16384), np.int8), "w3": np.empty((16384, 64), np.int8)}
+    assert not qblocks.covers((1, 8, 8, 64), [huge])
     assert not qblocks.covers((1, 8, 8, 32), [_mk_block(rng, 32, 8, 64)])
     assert not qblocks.covers((1, 8, 8, 16), [_mk_block(rng, 32, 8, 32)])
 

@@ -1,24 +1,21 @@
-// Shared core of the port's int8 implicit-GEMM kernels for Hopper (sm_90a),
-// included by shift_matmul.cu and qconv.cu.
+// Shared core of the port's int8 kernels for Hopper (sm_90a): the requant
+// epilogues, the mma.sync wrapper and the pot4 decode, included by
+// shift_matmul.cu, qconv_pipe.cuh, qblocks.cu and qstem.cu; and the pot4
+// GEMM main loop of qmatmul_pot4 (shift_matmul.cu). qmatmul_int8 runs its
+// own main loop (qmm_int8.cuh).
 //
 // The kernel's first template argument is a tag type named after the Python
-// wrapper that launches it (qmatmul_pot4, qmatmul_int8, qconv_s1, qconv_s2,
-// qconv_s2x1, the keys of kernels.launch_counts()), so a profiler trace
-// names each launch by its wrapper.
+// wrapper that launches it (the keys of kernels.launch_counts()), so a
+// profiler trace names each launch by its wrapper.
 //
 // One block computes a 128 x 128 tile of Y = epilogue(A . B), where A is
-// (M, K) int8 and B is (K, N) int8, on the tensor cores with
-// mma.sync.m16n8k32 (s8 x s8 -> s32). A is either a row-major matrix (GEMM)
-// or the implicit im2col view of an NHWC image (CONV) with K ordered
-// (dy, dx, c) as in HWIO weights, at strides (SH, SW) (template
-// arguments; a GEMM takes 1, 1); TF-SAME zero padding is applied by bounds
-// checks, so no padded copy of the image is ever written. B is either int8
-// (K, N) or 4-bit power-of-two codes packed two per byte in split-half
-// layout (K/2, N), decoded to int8 inside the block.
+// (M, K) int8 row-major and B is 4-bit power-of-two codes packed two per
+// byte in split-half layout (K/2, N), decoded to int8 inside the block, on
+// the tensor cores with mma.sync.m16n8k32 (s8 x s8 -> s32).
 //
 // Split-half order: packed byte row r holds code k=r in its low nibble and
-// code k=r+K/2 in its high nibble. A K-step of a pot4 layer covers packed
-// rows [32s, 32s+32): its 64 reduction indices are {32s .. 32s+31} and
+// code k=r+K/2 in its high nibble. A K-step covers packed rows
+// [32s, 32s+32): its 64 reduction indices are {32s .. 32s+31} and
 // {K/2+32s .. K/2+32s+31}, and the A tile loads exactly those columns. The
 // integer sum does not depend on the order of k, so each packed byte is read
 // and decoded once per block, for any even K, and no tile straddles K/2.
@@ -31,10 +28,9 @@
 // Epilogue: acc * es and + eb are rounded as two separate f32 operations
 // (__fmul_rn, __fadd_rn). A fused multiply-add would change the f32 value in
 // about a quarter of the elements and break bit-exactness with the plain
-// version. With RESID (the GEMM only: a residual add folded into the dense,
-// as the ViT's proj and mlp2), + f32(r) * radd follows as a third rounded
-// step, r being the int8 (M, N) residual. Then relu, round half to even
-// (rintf), clip to +-127.
+// version. requant_resid (qmatmul_int8's residual, as the ViT's proj and
+// mlp2) adds + f32(r) * radd as a third rounded step, r being the int8
+// residual. Then relu, round half to even (rintf), clip to +-127.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,18 +46,13 @@ constexpr int LDS = BK + 16;  // smem row stride in bytes: 80 keeps the
                               // fragment loads free of bank conflicts
 constexpr int THREADS = 256;  // 8 warps as 2 (M) x 4 (N), each 64 x 32
 
-enum Mode { GEMM = 0, CONV = 1 };
-
 struct Args {
-  const int8_t* x;    // GEMM: (M, K) row-major; CONV: NHWC (B, H, W, C)
-  const uint8_t* w;   // pot4: (K/2, N) packed codes; int8: (K, N)
+  const int8_t* x;    // (M, K) row-major
+  const uint8_t* w;   // (K/2, N) packed codes
   const float* es;    // (N,)
   const float* eb;    // (N,)
-  int8_t* y;          // (M, N); for a conv this is NHWC (B, OH, OW, N)
-  const int8_t* r;    // RESID: the residual (M, N), added as f32(r) * radd
-  float radd;
-  int M, N, K;        // CONV: M = B*OH*OW, K = KH*KW*C
-  int H, W, C, OH, OW, KW, pad_top, pad_left;
+  int8_t* y;          // (M, N)
+  int M, N, K;
   int relu;
 };
 
@@ -97,51 +88,11 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Reduction index of tile column j (0..63) in K-step s, or -1 past the end.
-template <bool POT4>
+// Reduction index of tile column j (0..63) in K-step s of the split-half
+// order, or -1 past the end.
 __device__ __forceinline__ int k_of(int s, int j, int K) {
-  if (POT4) {
-    const int kh = K >> 1, r = s * 32 + (j & 31);
-    return r < kh ? (j < 32 ? r : kh + r) : -1;
-  }
-  const int k = s * BK + j;
-  return k < K ? k : -1;
-}
-
-// Where output row m of the block reads its input.
-struct Row {
-  const int8_t* base;
-  int iy0, ix0;
-  bool valid;
-};
-
-template <int MODE, int SH, int SW>
-__device__ __forceinline__ Row row_info(const Args& p, int m) {
-  Row r{p.x, 0, 0, m < p.M};
-  if (!r.valid) return r;
-  if (MODE == GEMM) {
-    r.base = p.x + (size_t)m * p.K;
-    return r;
-  }
-  const int ohw = p.OH * p.OW;
-  const int b = m / ohw, rem = m - b * ohw;
-  const int oy = rem / p.OW, ox = rem - oy * p.OW;
-  r.base = p.x + (size_t)b * p.H * p.W * p.C;
-  r.iy0 = oy * SH - p.pad_top;
-  r.ix0 = ox * SW - p.pad_left;
-  return r;
-}
-
-// Address of A[m][k] for row r, or nullptr where the im2col view is padding.
-template <int MODE>
-__device__ __forceinline__ const int8_t* a_ptr(const Args& p, const Row& r, int k) {
-  if (!r.valid || k < 0) return nullptr;
-  if (MODE == GEMM) return r.base + k;
-  const int tap = k / p.C, c = k - tap * p.C;
-  const int dy = tap / p.KW, dx = tap - dy * p.KW;
-  const int iy = r.iy0 + dy, ix = r.ix0 + dx;
-  if (iy < 0 || iy >= p.H || ix < 0 || ix >= p.W) return nullptr;
-  return r.base + ((size_t)iy * p.W + ix) * p.C + c;
+  const int kh = K >> 1, r = s * 32 + (j & 31);
+  return r < kh ? (j < 32 ? r : kh + r) : -1;
 }
 
 union Chunk {
@@ -149,7 +100,7 @@ union Chunk {
   uint8_t b[16];
 };
 
-template <class Tag, int MODE, int SH, int SW, bool POT4, bool RESID>
+template <class Tag>
 __global__ void __launch_bounds__(THREADS, 2) qgemm_kernel(const Args p) {
   __shared__ __align__(16) int8_t sA[BM * LDS];  // [m][j]
   __shared__ __align__(16) int8_t sB[BN * LDS];  // [n][j], B transposed
@@ -159,16 +110,12 @@ __global__ void __launch_bounds__(THREADS, 2) qgemm_kernel(const Args p) {
 
   // A loader: rows tid/4 and tid/4 + 64, 16-byte column chunk tid%4
   const int aq = tid & 3;
-  const Row rows[2] = {row_info<MODE, SH, SW>(p, m0 + (tid >> 2)),
-                       row_info<MODE, SH, SW>(p, m0 + (tid >> 2) + 64)};
+  const int arow[2] = {m0 + (tid >> 2), m0 + (tid >> 2) + 64};
   // 16-byte loads where every 16 consecutive k of a chunk are contiguous
-  // in memory and aligned; the byte path covers the rest (the cin=3 stem,
-  // the fc's N=1000)
-  const int run = MODE == GEMM ? p.K : p.C;
-  const bool vec_a = run % 16 == 0 && (!POT4 || (p.K / 2) % 16 == 0) &&
-                     (uintptr_t)p.x % 16 == 0;
+  // in memory and aligned; the byte path covers the rest
+  const bool vec_a = p.K % 16 == 0 && (p.K / 2) % 16 == 0 && (uintptr_t)p.x % 16 == 0;
   const bool vec_b = p.N % 16 == 0 && (uintptr_t)p.w % 16 == 0;
-  const int steps = POT4 ? (p.K / 2 + 31) / 32 : (p.K + BK - 1) / BK;
+  const int steps = (p.K / 2 + 31) / 32;
 
   int acc[4][4][4];
 #pragma unroll
@@ -183,24 +130,26 @@ __global__ void __launch_bounds__(THREADS, 2) qgemm_kernel(const Args p) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       int8_t* dst = sA + ((tid >> 2) + 64 * i) * LDS + aq * 16;
+      const bool rv = arow[i] < p.M;
+      const int8_t* base = p.x + (size_t)arow[i] * p.K;
       if (vec_a) {
-        const int8_t* src = a_ptr<MODE>(p, rows[i], k_of<POT4>(s, aq * 16, p.K));
+        const int k = k_of(s, aq * 16, p.K);
         int4 v = make_int4(0, 0, 0, 0);
-        if (src) v = *reinterpret_cast<const int4*>(src);
+        if (rv && k >= 0) v = *reinterpret_cast<const int4*>(base + k);
         *reinterpret_cast<int4*>(dst) = v;
       } else {
 #pragma unroll 4
         for (int e = 0; e < 16; ++e) {
-          const int8_t* src = a_ptr<MODE>(p, rows[i], k_of<POT4>(s, aq * 16 + e, p.K));
-          dst[e] = src ? *src : 0;
+          const int k = k_of(s, aq * 16 + e, p.K);
+          dst[e] = (rv && k >= 0) ? base[k] : 0;
         }
       }
     }
-    // ---- B tile, transposed: sB[n][j] = B[k_of(s, j)][n0 + n] ----
-    if (POT4) {
-      // lane = packed row in this step, warp = 16-column chunk; each byte
-      // yields the low-half code (j = lane) and the high-half code
-      // (j = 32 + lane)
+    // ---- B tile, transposed and decoded: sB[n][j] = B[k_of(s, j)][n0 + n];
+    // lane = packed row in this step, warp = 16-column chunk; each byte
+    // yields the low-half code (j = lane) and the high-half code (j = 32 +
+    // lane) ----
+    {
       const int r = s * 32 + lane, nc = warp * 16, n = n0 + nc;
       const bool rv = r < p.K / 2;
       Chunk u;
@@ -217,23 +166,6 @@ __global__ void __launch_bounds__(THREADS, 2) qgemm_kernel(const Args p) {
         int8_t* d = sB + (nc + e) * LDS;
         d[lane] = decode_pot(u.b[e] & 15);
         d[32 + lane] = decode_pot(u.b[e] >> 4);
-      }
-    } else {
-      const int j = tid & 63, k = s * BK + j;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int nc = ((tid >> 6) + 4 * h) * 16, n = n0 + nc;
-        Chunk u;
-        u.v = make_int4(0, 0, 0, 0);
-        if (vec_b) {
-          if (k < p.K && n < p.N) u.v = *reinterpret_cast<const int4*>(p.w + (size_t)k * p.N + n);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 16; ++e)
-            u.b[e] = (k < p.K && n + e < p.N) ? p.w[(size_t)k * p.N + n + e] : 0;
-        }
-#pragma unroll
-        for (int e = 0; e < 16; ++e) sB[(nc + e) * LDS + j] = (int8_t)u.b[e];
       }
     }
     __syncthreads();
@@ -283,24 +215,18 @@ __global__ void __launch_bounds__(THREADS, 2) qgemm_kernel(const Args p) {
         if (row >= p.M) continue;
         int8_t* out = p.y + (size_t)row * p.N + col;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          if (col + c >= p.N) continue;
-          if (RESID)
-            out[c] = requant_resid(acc[i][j][2 * h + c], es[c], eb[c],
-                                   p.r[(size_t)row * p.N + col + c], p.radd, relu);
-          else
-            out[c] = requant(acc[i][j][2 * h + c], es[c], eb[c], relu);
-        }
+        for (int c = 0; c < 2; ++c)
+          if (col + c < p.N) out[c] = requant(acc[i][j][2 * h + c], es[c], eb[c], relu);
       }
     }
   }
 }
 
-template <class Tag, int MODE, int SH, int SW, bool POT4, bool RESID = false>
+template <class Tag>
 int launch(const Args& p, void* stream) {
   if (p.M > 0 && p.N > 0) {
     const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
-    qgemm_kernel<Tag, MODE, SH, SW, POT4, RESID><<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
+    qgemm_kernel<Tag><<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
 }

@@ -182,6 +182,43 @@ def chain_blocks(node, params) -> list[dict]:
     return blocks
 
 
+def _runs_int8_gemm(node) -> bool:
+    """Does the node run on the int8 GEMM kernel (``qmatmul_int8``)? An
+    int8 dense, or an int8 ungrouped 1x1 stride-1 conv without padding
+    (``qconv.fused_qconv2d``'s GEMM route)."""
+    if node.attrs.get("wfmt") != "int8":
+        return False
+    if node.op == "qdense":
+        return True
+    a = node.attrs
+    padding = a.get("padding", "SAME")
+    zero_pads = isinstance(padding, str) or all(p == 0 for pair in padding for p in pair)
+    return (node.op == "qconv2d" and a.get("groups", 1) == 1 and zero_pads
+            and tuple(a["kshape"][:2]) + tuple(a.get("strides", (1, 1))) == (1, 1, 1, 1))
+
+
+def prepare_weights(graph, params) -> dict:
+    """The params with every weight the int8 GEMM and the chain kernel read
+    replaced, once, by its K-major copy (``shift_matmul.prepare_weight``,
+    ``qblocks.prepare_w2``), seen through a view of the param's own shape:
+    one copy of each weight, which the kernels read without preparing it
+    and the plain versions read as the reference's layout."""
+    out = dict(params)
+    names = set()
+    for node in graph.nodes:
+        if _runs_int8_gemm(node):
+            names.add(node.params[0])
+        elif node.op == "qblockchain":
+            names.update(node.params[0::3])  # each conv's weight, es, eb in turn
+    for name in names:
+        w = out[name]
+        if w.dim() == 4 and tuple(w.shape[:2]) == (3, 3):  # a chain's 3x3, HWIO
+            out[name] = qblocks.prepare_w2(w)
+        else:
+            out[name] = shift_matmul.prepare_weight(w.reshape(-1, w.shape[-1])).reshape(w.shape)
+    return out
+
+
 def qblockchain(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """The chain kernel (kernels/qblocks.py) on ``chain_blocks``."""
     return qblocks.fused_qblockchain(x_q, chain_blocks(node, params), plain)

@@ -8,20 +8,37 @@ and take their plain versions (``*_plain``) on CPU tensors. The plain
 versions decode the codes, accumulate exactly in float64 and apply the same
 f32 epilogue op for op; torch's int8 matmul on the CPU returns int8 and
 wraps, so it is not used.
+
+The int8 kernel reads W K-major, as W^T rows of round_up(K, 16) bytes.
+``prepare_weight`` makes that copy (the Engine makes it once, at load) and
+returns it as a (K, N) view, so W keeps its layout at every signature and
+the plain version reads the view as it is. A W that is not such a view is
+prepared by the wrapper on each call, counted in ``PREPARED_PER_CALL``.
+``plan`` lays out each launch (tile, copy widths, split-K), cached per
+shape.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from ..transform import potq
 from . import build
 
 LAUNCHES = {"qmatmul_pot4": 0, "qmatmul_int8": 0}
+# weights the int8 kernel's wrapper prepared (K-major) on a call, having
+# been given none prepared; 0 on every Engine forward
+PREPARED_PER_CALL = {"qmatmul_int8": 0}
 _SIG_POT4 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_SIG_INT8 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+# x, wt, ldw, es, eb, r, y, m, n, k, relu, radd, tile, avec, ovec, ws,
+# counters, splits, stream
+_SIG_INT8 = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
 @functools.cache
@@ -58,26 +75,226 @@ def qmatmul_pot4_plain(x_q, packed, eff_scale, eff_bias, relu: bool = False, res
     return qmatmul_int8_plain(x_q, w_q, eff_scale, eff_bias, relu, residual)
 
 
-def _launch(kernel: str, x_q, w, w_shape, w_dtype, eff_scale, eff_bias, relu, residual=None):
+def _roundup(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _align(ptr: int) -> int:
+    """The largest of 16, 8, 4, 2, 1 that divides ``ptr``."""
+    return min(16, ptr & -ptr) if ptr else 16
+
+
+# ---- the int8 GEMM's K-major weights ----
+
+def prepare_weight(w_q: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 -> the same values as a (K, N) view of K-major rows
+    (N, round_up(K, 16)), zero past K: the layout ``csrc/qmm_int8.cuh``
+    copies from."""
+    k, n = w_q.shape
+    rows = torch.zeros((n, _roundup(k, 16)), dtype=torch.int8, device=w_q.device)
+    rows[:, :k] = w_q.t()
+    return rows[:, :k].t()
+
+
+def prepared_ld(w: torch.Tensor) -> int | None:
+    """The row stride of ``w``'s K-major rows if ``w`` is a (K, N) view
+    that the int8 kernel reads as it is (``prepare_weight``'s layout: a
+    stride of 1 along K, rows a multiple of 16 bytes apart, at least
+    round_up(K, 16) long in memory, 16-byte aligned), else None."""
+    if w.dim() != 2 or w.dtype != torch.int8:
+        return None
+    k, n = w.shape
+    ld = w.stride(1)
+    if (k > 1 and w.stride(0) != 1) or ld % 16 or ld < _roundup(k, 16) or w.data_ptr() % 16:
+        return None
+    need = w.storage_offset() + (n - 1) * ld + _roundup(k, 16)
+    return ld if w.untyped_storage().nbytes() >= need else None
+
+
+# ---- the int8 GEMM's launch plan ----
+#
+# csrc/qmm_int8.cuh: one block of two warpgroups a BM x BN output tile, a
+# cp.async ring of 64-deep K steps (A [BM][64] and W^T [BN][64] a slot),
+# int8 wgmma; split-K over workspace slices where the grid is under one
+# wave.
+
+TILES = ((128, 128), (128, 64), (64, 128), (64, 64))
+BK = 64
+MAX_STAGES = 6
+ROOM = 232448 // 2 - 1024  # shared memory of one of two blocks an SM
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one int8 GEMM launches. ``avec``: X's copy width (16, 8 or 4),
+    or 0 where neither K nor X's address takes 4 (the wrapper then pads X
+    to round_up(K, 16) columns and copies 16); ``ovec``: the output's and
+    the residual's copy width (16, 8, 4, 2 or 1); ``splits``: blocks a
+    tile along K, each over ``per`` steps."""
+    tile: int
+    bm: int
+    bn: int
+    avec: int
+    ovec: int
+    splits: int
+    steps: int
+    grid: tuple[int, int, int]
+    smem: int
+    ws_ints: int       # split-K workspace, int32 elements
+    counters: int      # split-K counters, one a tile
+
+    @property
+    def per(self) -> int:
+        return -(-self.steps // self.splits)
+
+    @property
+    def name(self) -> str:
+        split = f" split{self.splits}" if self.splits > 1 else ""
+        return f"{self.bm}x{self.bn} a{self.avec or 'pad'} o{self.ovec}{split}"
+
+
+def stages(bm: int, bn: int) -> int:
+    """Ring slots of a tile (csrc/qmm_int8.cuh: stages): as many as fit two
+    blocks an SM, up to MAX_STAGES."""
+    return min(MAX_STAGES, ROOM // ((bm + bn) * BK))
+
+
+def smem_bytes(bm: int, bn: int) -> int:
+    """Dynamic shared memory of a block (csrc/qmm_int8.cuh: smem_bytes):
+    the ring, which the epilogue's output and residual tiles reuse."""
+    return max(stages(bm, bn) * (bm + bn) * BK, 2 * bm * (bn + 16))
+
+
+def _pick_tile(m: int, n: int, sms: int) -> int:
+    """Index into TILES. M > 64: 128 x 128 and then 128 x 64 while the grid
+    has a block for every other SM (two blocks take an SM), else 64 x 64
+    (with split-K). M <= 64 (the fc, one image's tokens): 64 x 64 while its
+    grid is under a wave (then split along K), else 64 x 128. (Measured on
+    the H100, bench/ring_variants.py: 256 x 128 tiles, one block an SM, lost
+    to 128 x 128 at every large ViT-B/16 shape.)"""
+    mb = lambda bm: -(-m // bm)  # noqa: E731
+    nb = lambda bn: -(-n // bn)  # noqa: E731
+    if m > 64:
+        if n > 64 and 2 * mb(128) * nb(128) >= sms:
+            return 0
+        if 2 * mb(128) * nb(64) >= sms:
+            return 1
+        return 3
+    return 3 if nb(64) < sms else 2
+
+
+def _splits(blocks: int, steps: int, sms: int) -> int:
+    """Split-K where the grid has fewer blocks than SMs and K has 8 steps
+    or more: about 1.5 blocks an SM, runs of at least 4 steps, no empty
+    run."""
+    if blocks >= sms or steps < 8:
+        return 1
+    splits = min(max(2, round(1.5 * sms / blocks)), steps // 4)
+    per = -(-steps // splits)
+    return -(-steps // per)
+
+
+def plan(m: int, n: int, k: int, x_align: int = 16, o_align: int = 16,
+         sms: int = H100_SMS) -> Plan:
+    """The launch of one int8 GEMM: deterministic in its shape, X's
+    address alignment, the output's (and residual's) address alignment and
+    the card's SM count."""
+    avec = next((v for v in (16, 8, 4) if k % v == 0 and x_align % v == 0), 0)
+    ovec = next(v for v in (16, 8, 4, 2, 1) if n % v == 0 and o_align % v == 0)
+    tile = _pick_tile(m, n, sms)
+    bm, bn = TILES[tile]
+    steps = -(-_roundup(k, 16) // BK) if not avec else -(-k // BK)
+    blocks = -(-m // bm) * -(-n // bn)
+    splits = _splits(blocks, steps, sms)
+    tiles = blocks if splits > 1 else 0
+    return Plan(tile, bm, bn, avec, ovec, splits, steps,
+                (-(-m // bm), -(-n // bn), splits), smem_bytes(bm, bn),
+                splits * tiles * bm * bn, tiles)
+
+
+@functools.lru_cache(maxsize=512)
+def _device_plan(key: tuple, device: torch.device):
+    """(plan, its split-K workspace and counters (int32 zeros the kernel
+    leaves zero)): one set a plan, so calls of one plan share them and run
+    on one stream."""
+    p = plan(*key)
+    return (p, torch.empty(max(p.ws_ints, 1), dtype=torch.int32, device=device),
+            torch.zeros(max(p.counters, 1), dtype=torch.int32, device=device))
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan_key(x_q, y, residual) -> tuple:
     m, k = x_q.shape
-    n = w_shape[1]
-    operands = dict(x_q=(x_q, torch.int8, (m, k)), w=(w, w_dtype, w_shape),
+    o_align = _align(y.data_ptr())
+    if residual is not None:
+        o_align = min(o_align, _align(residual[0].data_ptr()))
+    return (m, y.shape[1], k, _align(x_q.data_ptr()), o_align, _sms(x_q.device))
+
+
+def launch_plan(x_q, n: int, residual=None) -> Plan:
+    """The plan the int8 kernel takes for these CUDA operands (an output
+    from ``torch.empty``, as the wrapper's, is 16-byte aligned)."""
+    o_align = 16 if residual is None else _align(residual[0].data_ptr())
+    m, k = x_q.shape
+    return _device_plan((m, n, k, _align(x_q.data_ptr()), o_align, _sms(x_q.device)),
+                        x_q.device)[0]
+
+
+def _launch_pot4(x_q, packed, eff_scale, eff_bias, relu):
+    m, k = x_q.shape
+    n = packed.shape[1]
+    build.check_operands(x_q.device, x_q=(x_q, torch.int8, (m, k)),
+                         w=(packed, torch.uint8, (k // 2, n)),
+                         eff_scale=(eff_scale, torch.float32, (n,)),
+                         eff_bias=(eff_bias, torch.float32, (n,)))
+    y = torch.empty((m, n), dtype=torch.int8, device=x_q.device)
+    rc = _lib().tf2_qmatmul_pot4(x_q.data_ptr(), packed.data_ptr(), eff_scale.data_ptr(),
+                                 eff_bias.data_ptr(), y.data_ptr(), m, n, k, int(relu),
+                                 torch.cuda.current_stream(x_q.device).cuda_stream)
+    build.check_launch(rc, "qmatmul_pot4")
+    LAUNCHES["qmatmul_pot4"] += 1
+    return y
+
+
+def _launch_int8(x_q, w_q, eff_scale, eff_bias, relu, residual):
+    m, k = x_q.shape
+    if w_q.dim() != 2 or w_q.shape[0] != k:
+        raise ValueError(f"w has shape {tuple(w_q.shape)}, expected ({k}, N)")
+    n = w_q.shape[1]
+    operands = dict(x_q=(x_q, torch.int8, (m, k)),
                     eff_scale=(eff_scale, torch.float32, (n,)),
                     eff_bias=(eff_bias, torch.float32, (n,)))
     if residual is not None:
         operands["residual"] = (residual[0], torch.int8, (m, n))
     build.check_operands(x_q.device, **operands)
+    if w_q.device != x_q.device:
+        raise ValueError(f"w on {w_q.device}, expected {x_q.device}")
+    if w_q.dtype != torch.int8:
+        raise ValueError(f"w has dtype {w_q.dtype}, expected {torch.int8}")
+    ld = prepared_ld(w_q)
+    if ld is None:
+        w_q = prepare_weight(w_q)
+        ld = w_q.stride(1)
+        PREPARED_PER_CALL["qmatmul_int8"] += 1
     y = torch.empty((m, n), dtype=torch.int8, device=x_q.device)
-    stream = torch.cuda.current_stream(x_q.device).cuda_stream
-    ptrs = [x_q.data_ptr(), w.data_ptr(), eff_scale.data_ptr(), eff_bias.data_ptr()]
-    if kernel == "qmatmul_pot4":
-        rc = _lib().tf2_qmatmul_pot4(*ptrs, y.data_ptr(), m, n, k, int(relu), stream)
-    else:
-        r_ptr, scale = (None, 0.0) if residual is None else (residual[0].data_ptr(), residual[1])
-        rc = _lib().tf2_qmatmul_int8(*ptrs, r_ptr, y.data_ptr(), m, n, k, int(relu),
-                                     build.f32(scale), stream)
-    build.check_launch(rc, kernel)
-    LAUNCHES[kernel] += 1
+    p, ws, counters = _device_plan(_plan_key(x_q, y, residual), x_q.device)
+    kk = k
+    if not p.avec:  # X's rows take no 4-byte copy: zero-pad them to 16 bytes
+        kk = _roundup(k, 16)
+        x_q = F.pad(x_q, (0, kk - k))
+    r_ptr, scale = (None, 0.0) if residual is None else (residual[0].data_ptr(), residual[1])
+    rc = _lib().tf2_qmatmul_int8(
+        x_q.data_ptr(), w_q.data_ptr(), ld, eff_scale.data_ptr(), eff_bias.data_ptr(), r_ptr,
+        y.data_ptr(), m, n, kk, int(relu), build.f32(scale), p.tile, p.avec or 16, p.ovec,
+        ws.data_ptr(), counters.data_ptr(), p.splits,
+        torch.cuda.current_stream(x_q.device).cuda_stream)
+    build.check_launch(rc, "qmatmul_int8")
+    LAUNCHES["qmatmul_int8"] += 1
     return y
 
 
@@ -94,18 +311,18 @@ def qmatmul_pot4(x_q: torch.Tensor, packed: torch.Tensor, eff_scale: torch.Tenso
     if residual is not None:
         raise ValueError("qmatmul_pot4 kernel: no residual epilogue; decode the "
                          "weights to int8 for qmatmul_int8")
-    return _launch("qmatmul_pot4", x_q, packed, (k // 2, packed.shape[1]),
-                   torch.uint8, eff_scale, eff_bias, relu)
+    return _launch_pot4(x_q, packed, eff_scale, eff_bias, relu)
 
 
 def qmatmul_int8(x_q: torch.Tensor, w_q: torch.Tensor, eff_scale: torch.Tensor,
                  eff_bias: torch.Tensor, relu: bool = False, residual=None) -> torch.Tensor:
     """x_q (M, K) int8 . w_q (K, N) int8 -> (M, N) int8; ``residual`` is
-    (r_q (M, N) int8, its scale) or None."""
+    (r_q (M, N) int8, its scale) or None. ``w_q`` may be (and on the
+    Engine's path is) ``prepare_weight``'s view; any other (K, N) tensor is
+    prepared on the call (``PREPARED_PER_CALL``)."""
     if x_q.device.type == "cpu":
         return qmatmul_int8_plain(x_q, w_q, eff_scale, eff_bias, relu, residual)
-    return _launch("qmatmul_int8", x_q, w_q, (x_q.shape[1], w_q.shape[1]),
-                   torch.int8, eff_scale, eff_bias, relu, residual)
+    return _launch_int8(x_q, w_q, eff_scale, eff_bias, relu, residual)
 
 
 def fused_qmatmul(x_q, wparam, eff_scale, eff_bias, relu: bool, wfmt: str,

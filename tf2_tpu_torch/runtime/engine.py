@@ -158,7 +158,10 @@ class Engine:
     On the card the load ends with the coverage plan (``Engine.plan``): the
     nodes no kernel takes, ``plain_nodes``, run their plain versions there,
     as the reference runs them in XLA. On the CPU every node is plain and
-    ``plain_nodes`` is empty.
+    ``plain_nodes`` is empty. On every device the weights of the int8 GEMMs
+    and of the chains are then stored K-major, as those kernels read them
+    (``dispatch.prepare_weights``), each once, seen through a view of its
+    own shape.
     """
 
     def __init__(self, graph: Graph, params: Mapping[str, np.ndarray],
@@ -182,8 +185,8 @@ class Engine:
         self.graph = graph
         self.plain_nodes = (self.plan(graph, params, Limits.of_card())
                             if self.device.type == "cuda" else frozenset())
-        self.params = {k: torch.as_tensor(np.asarray(v)).to(self.device)
-                       for k, v in params.items()}
+        self.params = dispatch.prepare_weights(
+            graph, {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in params.items()})
         self._fn = execute(graph, plain_nodes=self.plain_nodes)
 
     @staticmethod
