@@ -22,7 +22,12 @@ Phases, in order; any failure exits non-zero before the last line:
              and given as it is (prepared on the call, counted), which with
              the zoo's shapes (phases 4-10) reach every variant of the int8
              GEMM's plan (tiles, split-K, copy widths, residual; each
-             printed, all required after phase 10). Times each
+             printed, all required after phase 10); ragged pot4 GEMMs
+             (RAGGED_POT4) the same way, random and +-127 inputs on
+             max-magnitude codes, which with the zoo's shapes (phases 4-9)
+             reach every variant of the pot4 plan (BM, BN, copy widths, slab
+             and wave splits; each printed, all required after phase 10).
+             Times each
              kernel (a conv's row names the plan it took),
              its plain version and a library yardstick (torch._int_mm for
              the GEMMs, bf16 F.conv2d for the convs) with CUDA events at
@@ -34,7 +39,9 @@ Phases, in order; any failure exits non-zero before the last line:
              every node equal to the plain path on the card and, at batch 1,
              to the Engine on the CPU; Engine.benchmark img/s and latency.
  6. chains   Engine(block_fusion=True) at batch 64 and 1 from the same
-             artifact: every qblockchain node against the plain chain with
+             artifact: every conv and dense node (the six pot4 GEMMs
+             between the chains) as in phase 4, untimed; every qblockchain
+             node against the plain chain with
              0 mismatches on its real input, with the adds' relu flipped,
              with +-127 inputs on +-127 weights, and ragged chains on the
              plans the wrapper picks; two-block chains on every kind of
@@ -57,7 +64,10 @@ Phases, in order; any failure exits non-zero before the last line:
              both batches, at the same shapes on random and on +-127 inputs
              under three (s_in, s_out, alpha) sets at radius 1 and 2 and
              beta 0.75, 0.5, 0.6 and 1.0, and on ragged shapes (odd M,
-             C = 13, C < 2r + 1, M = 1), all with 0 mismatches; qlrn timed
+             C = 13, C < 2r + 1, M = 1), and with y / s_out on and next to
+             every .5 boundary (the elements the certified epilogue sends to
+             the exact steps counted and printed, at least one required),
+             all with 0 mismatches; qlrn timed
              at batch 64 (kernel, plain, bound, F.local_response_norm as
              the yardstick); its stem as in phase 12. Then both Engines as
              in phase 5: launch counts per forward
@@ -211,6 +221,15 @@ SSD_LAUNCHES = _launches(0, 0, 8, 6, 0, 0, 0, 0, 0)
 RAGGED_GEMMS = [(2048, 192, 1024, 0, False), (197, 768, 2304, 0, True),
                 (16, 64, 8464, 0, True), (300, 200, 130, 0, True), (33, 196, 99, 0, False),
                 (33, 50, 20, 0, True), (40, 64, 48, 4, False), (1, 3072, 768, 0, True)]
+# ragged pot4 GEMMs (m, k, n, byte offset of x): K = 2, 16, 48 and 2 * odd,
+# N = 1, 16, 24, 48 and 1000, x at every alignment, M = 1 and 63, a K * BN
+# too large for one slab; with the zoo's shapes they reach every variant of
+# the pot4 plan (BM 128 and 64, BN 16-128, x copied 16, 8, 4 bytes or
+# padded, output widths 16-1, no split, a slab split and a wave split;
+# kernels/shift_matmul.py: plan_pot4)
+RAGGED_POT4 = [(1, 2, 1, 0), (63, 16, 16, 0), (63, 48, 24, 0), (100, 34, 48, 0),
+               (130, 50, 1000, 0), (1, 2048, 1000, 0), (63, 96, 200, 8), (300, 200, 130, 4),
+               (70, 64, 36, 2), (65, 66, 99, 1), (20000, 4608, 128, 0)]
 # chains on given plans ((b, h, w, cin, cm, cout, down), (g, r, wc, c, bn)):
 # bands and whole images, clusters of 1 to 16 CTAs, MMA widths 32 and 64,
 # narrow bands, ragged channels (kernels/qblocks.py: make_plan)
@@ -771,7 +790,9 @@ class KernelStats:
                   for name in KERNELS}
         self.mismatches = []
         self.gemm_plans = set()   # (tile, split, avec, ovec, residual, prepared)
+        self.pot4_plans = set()   # (bm, bn, avec, ovec, split_for, prepared)
         self.chain_plans = set()  # (whole, g, c, bn, down)
+        self.qlrn_exact = [0, 0]  # qlrn elements on the exact steps, of those checked
 
     def note_plans(self, kernel, node, params, x_q):
         """Record the plan variant of an int8 GEMM or chain call."""
@@ -787,6 +808,12 @@ class KernelStats:
             p = shift_matmul.launch_plan(x2, n, residual)
             self.gemm_plans.add((p.tile, p.splits > 1, p.avec, p.ovec, residual is not None,
                                  shift_matmul.prepared_ld(w2) is not None))
+        elif kernel == "qmatmul_pot4":
+            x = _main_input(x_q)
+            w = params[node.params[0]]
+            p = shift_matmul.launch_plan_pot4(x.reshape(-1, x.shape[-1]), w.shape[-1])
+            self.pot4_plans.add((p.bm, p.bn, p.avec, p.ovec, p.split_for,
+                                 shift_matmul.prepared_ld(w) is not None))
         elif kernel == "qblockchain":
             b, h, w, cin = x_q.shape
             for blk in dispatch.chain_blocks(node, params):
@@ -931,10 +958,63 @@ def _gemm_variants(stats, rng, dev):
         log(f"ragged qmatmul_int8 {m}x{k}x{n} residual={resid}: {p.name}")
 
 
+def _pot4_variants(stats, rng, dev):
+    """qmatmul_pot4 on RAGGED_POT4, each with its codes prepared (K-major,
+    as the Engine holds them) and as given (prepared on the call, counted),
+    relu on and off, on random and on +-127 inputs with max-magnitude codes,
+    against its plain version; the plans are printed and recorded."""
+    from tf2_tpu_torch import kernels
+    from tf2_tpu_torch.kernels import shift_matmul
+    from tf2_tpu_torch.transform import potq
+
+    for m, k, n, off in RAGGED_POT4:
+        xs = torch.zeros(m * k + off, dtype=torch.int8, device=dev)
+        x = xs[off:].view(m, k)
+        es = torch.as_tensor((rng.uniform(0.5, 3.0, n) / (64 * np.sqrt(k)))
+                             .astype(np.float32)).to(dev)
+        eb = torch.as_tensor(rng.normal(0, 3, n).astype(np.float32)).to(dev)
+        p = shift_matmul.launch_plan_pot4(x, n)
+        for extreme in (False, True):
+            if extreme:
+                xv = rng.choice(np.array([-127, 127], np.int8), m * k)
+                codes = rng.choice(np.array([7, 15], np.uint8), (k, n))
+            else:
+                xv = rng.integers(-127, 128, m * k, dtype=np.int8)
+                codes = rng.integers(0, 16, (k, n)).astype(np.uint8)
+            x.copy_(torch.as_tensor(xv).view(m, k).to(dev))
+            packed = torch.as_tensor(potq.pack_codes(codes)).to(dev)
+            for relu, w in ((True, shift_matmul.prepare_weight(packed)), (False, packed)):
+                prepared = shift_matmul.prepared_ld(w) is not None
+                kernels.reset_launch_counts()
+                y = shift_matmul.qmatmul_pot4(x, w, es, eb, relu)
+                if kernels.prepared_per_call()["qmatmul_pot4"] != (0 if prepared else 1):
+                    raise RuntimeError(f"qmatmul_pot4 {m}x{k}x{n}: per-call preparation "
+                                       "miscounted")
+                stats.check("qmatmul_pot4", f"ragged {m}x{k}x{n}+{off} {p.name} "
+                            f"prepared={prepared} extreme={extreme}", y,
+                            shift_matmul.qmatmul_pot4_plain(x, packed, es, eb, relu))
+                stats.pot4_plans.add((p.bm, p.bn, p.avec, p.ovec, p.split_for, prepared))
+        log(f"ragged qmatmul_pot4 {m}x{k}x{n} x offset {off}: {p.name}")
+    # x = -128 against codes of +-64: every accumulator -+128 * 64 * K, at
+    # and past the 2^22 of the epilogue's conversion without an instruction
+    for k in (512, 514, 516):
+        x = torch.full((70, k), -128, dtype=torch.int8, device=dev)
+        for code in (7, 15):
+            packed = torch.as_tensor(potq.pack_codes(np.full((k, 40), code, np.uint8))).to(dev)
+            acc = 128 * 64 * k * (-1 if code == 7 else 1)
+            es = torch.full((40,), 2.0 ** -10, dtype=torch.float32, device=dev)
+            eb = torch.as_tensor((-acc * 2.0 ** -10 + rng.uniform(-60, 60, 40))
+                                 .astype(np.float32)).to(dev)
+            y = shift_matmul.qmatmul_pot4(x, shift_matmul.prepare_weight(packed), es, eb, False)
+            stats.check("qmatmul_pot4", f"accumulator bound K={k} code={code}", y,
+                        shift_matmul.qmatmul_pot4_plain(x, packed, es, eb, False))
+
+
 def phase_ragged_kernels(stats, dev):
     """The conv/GEMM kernels on shapes off the main paths."""
     rng = np.random.default_rng(4)
     _gemm_variants(stats, rng, dev)
+    _pot4_variants(stats, rng, dev)
     variants = set()
     for node, params, x in _ragged_cases(rng, dev):
         kernel = _which_kernel(node, params, x)
@@ -986,8 +1066,40 @@ def phase_qlrn(engine_by_batch, plain_envs, stats):
             kw = dict(radius=radius, alpha=alpha, beta=beta, bias=1.0, s_in=s_in, s_out=s_out)
             stats.check("qlrn", f"ragged {m}x{c} {kw}", qlrn.qlrn(xr, **kw),
                         qlrn.qlrn_plain(xr, **kw))
+    _qlrn_boundaries(stats, rng, dev)
     stats.raise_on_mismatch("the qlrn kernel disagrees with its plain version")
     log(f"qlrn: {stats.k['qlrn']['checks']} checks, max |err| {stats.k['qlrn']['max_abs_err']}")
+
+
+def _qlrn_boundaries(stats, rng, dev):
+    """qlrn with y / s_out on and next to every .5 boundary: for each scale
+    set of QLRN_SCALES, radius 1 and 2, C = 64 and 192 (the fast kernel)
+    and 13 (the generic one), and each
+    k = 0 .. 126, s_out = |v| / (k + 1/2) for an element's v = y before the
+    division, and the f32 values either side of it. The certified epilogue
+    sends those elements to the exact steps; their count is reported and
+    must not be 0."""
+    from tf2_tpu_torch.kernels import qlrn
+
+    slow = torch.zeros(1, dtype=torch.int32, device=dev)
+    elements = 0
+    for (s_in, _, alpha), radius, c in itertools.product(QLRN_SCALES, (1, 2), (64, 192, 13)):
+        x = torch.as_tensor(rng.integers(-127, 128, (129, c), dtype=np.int8)).to(dev)
+        kw = dict(radius=radius, alpha=alpha, beta=0.75, bias=1.0)
+        v = qlrn.lrn_f32(x.to(torch.float32) * np.float32(s_in), **kw).flatten()
+        big = v[v.abs() > 1].cpu().numpy()
+        picks = big[rng.integers(0, big.size, 127)]
+        for k, vj in zip(range(127), picks):
+            s0 = np.float32(abs(vj) / (k + 0.5))
+            for s_out in (s0, np.nextafter(s0, np.float32(1)), np.nextafter(s0, np.float32(0))):
+                kw_k = dict(kw, s_in=s_in, s_out=float(s_out))
+                stats.check("qlrn", f"boundary k={k} c={c} {kw_k}",
+                            qlrn.qlrn(x, slow_count=slow, **kw_k), qlrn.qlrn_plain(x, **kw_k))
+                elements += x.numel()
+    stats.qlrn_exact = [int(slow), elements]
+    log(f"qlrn near .5 boundaries: {int(slow)} of {elements} elements took the exact steps")
+    if not int(slow):
+        raise RuntimeError("qlrn: the certified epilogue's exact steps were never taken")
 
 
 def phase_chains(engines, images, stats):
@@ -1245,6 +1357,21 @@ def check_gemm_variants(stats):
     for i, need in enumerate(want):
         if {v[i] for v in variants} != need:
             raise RuntimeError(f"qmatmul_int8 plan variants not all reached: {variants}")
+
+
+def check_pot4_variants(stats):
+    """After phases 4-9: the pot4 GEMM calls have reached every tile height
+    (128, 64) and width (16, 32, 64, 128) of its plan, each copy width of x
+    (16, 8, 4, padded) and of the output (16, 8, 4, 2, 1), no split, a
+    slab split and a wave split, and a prepared and a per-call weight."""
+    variants = sorted(stats.pot4_plans)
+    log("qmatmul_pot4 plans taken (bm, bn, x copy, out copy, split, prepared): "
+        + ", ".join(map(str, variants)))
+    want = [{64, 128}, {16, 32, 64, 128}, {0, 4, 8, 16}, {1, 2, 4, 8, 16},
+            {"", "slab", "wave"}, {False, True}]
+    for i, need in enumerate(want):
+        if {v[i] for v in variants} != need:
+            raise RuntimeError(f"qmatmul_pot4 plan variants not all reached: {variants}")
 
 
 def phase_vit384(stats):
@@ -1584,6 +1711,7 @@ def main() -> int:
     launches, summary, logits = phase_main("resnet50", engines["default"],
                                            cpu_engines["default"], images, plain_envs,
                                            EXPECTED_LAUNCHES)
+    phase_kernels(engines["block_fusion"], images, stats, timed=False)
     fused_envs = phase_chains(engines["block_fusion"], images, stats)
     fused_launches, summary["block_fusion"], _ = phase_main(
         "resnet50 block_fusion", engines["block_fusion"], cpu_engines["block_fusion"], images,
@@ -1611,6 +1739,8 @@ def main() -> int:
         if name == "vit_b16":
             launches["qattention"] = vit_launches["qattention"]
     check_gemm_variants(stats)
+    check_pot4_variants(stats)
+    zoo["qlrn_exact_path"] = {"elements": stats.qlrn_exact[1], "exact": stats.qlrn_exact[0]}
     zoo["ssd"] = phase_ssd(stats)
     zoo["vit_b16_cls_384"] = phase_vit384(stats)
     zoo["coverage"] = phase_coverage()

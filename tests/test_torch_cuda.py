@@ -339,6 +339,100 @@ def test_qmatmul_int8_plan_variants(cuda, m, k, n, x_offset, resid, name, prepar
     assert torch.equal(wq, w)
 
 
+# (m, k, n, byte offset of x in its storage): K = 2, 16, 48 and 2 * odd,
+# N = 1, 16, 24, 48, 1000, x at every alignment, M = 1 and 63, a K * BN too
+# large for one slab, split-K under a wave (chip_smoke.py: RAGGED_POT4)
+POT4_PLANS = [(1, 2, 1, 0), (63, 16, 16, 0), (63, 48, 24, 0), (100, 34, 48, 0),
+              (130, 50, 1000, 0), (1, 2048, 1000, 0), (63, 96, 200, 8), (300, 200, 130, 4),
+              (70, 64, 36, 2), (65, 66, 99, 1), (20000, 4608, 128, 0), (4096, 256, 1024, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,x_offset", POT4_PLANS)
+@pytest.mark.parametrize("prepared", [True, False])
+def test_qmatmul_pot4_plan_variants(cuda, m, k, n, x_offset, prepared):
+    """The pot4 kernel on each kind of plan (kernels/shift_matmul.py:
+    plan_pot4) equals the plain version, the codes prepared K-major (as the
+    Engine holds them) or prepared by the wrapper on the call (counted),
+    relu on and off, on random and on +-127 inputs and max-magnitude codes."""
+    rng = np.random.default_rng(m + k + n)
+    codes = rng.integers(0, 16, (k, n)).astype(np.uint8)
+    packed = torch.as_tensor(potq.pack_codes(codes)).to(cuda)
+    es = torch.as_tensor((rng.uniform(0.5, 3.0, n) / (64 * np.sqrt(k))).astype(np.float32)).to(cuda)
+    eb = torch.as_tensor(rng.normal(0, 3, n).astype(np.float32)).to(cuda)
+    xs = torch.zeros(m * k + x_offset, dtype=torch.int8, device=cuda)
+    x = xs[x_offset:].view(m, k)
+    wq = shift_matmul.prepare_weight(packed) if prepared else packed
+    assert (shift_matmul.prepared_ld(wq) is not None) == prepared
+    p = shift_matmul.launch_plan_pot4(x, n)
+    assert p.avec == next((v for v in (16, 8, 4) if k % v == 0 and (x_offset or 16) % v == 0), 0)
+    for xv, w in ((rng.integers(-127, 128, m * k, dtype=np.int8), wq),
+                  (rng.choice(np.array([-127, 127], np.int8), m * k),
+                   shift_matmul.prepare_weight(torch.full_like(packed, 0x77)) if prepared
+                   else torch.full_like(packed, 0xF7))):
+        x.copy_(torch.as_tensor(xv).view(m, k).to(cuda))
+        for relu in (True, False):
+            kernels.reset_launch_counts()
+            got = shift_matmul.qmatmul_pot4(x, w, es, eb, relu)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["qmatmul_pot4"] == 1
+            unprepared = shift_matmul.prepared_ld(w) is None
+            assert kernels.prepared_per_call()["qmatmul_pot4"] == int(unprepared)
+            assert torch.equal(got, shift_matmul.qmatmul_pot4_plain(x, w, es, eb, relu)), p.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [510, 512, 514, 516])
+@pytest.mark.parametrize("code", [7, 15])
+def test_qmatmul_pot4_at_the_accumulator_bound(cuda, k, code):
+    """x = -128 against codes of +64 (7) or -64 (15): every accumulator is
+    -+128 * 64 * K, just inside 2^22 at K = 512 and past it at K = 514 and
+    516 (csrc/shift_matmul.cu: small), with es and eb that put the outputs
+    in range, so a wrong conversion shows."""
+    m, n = 70, 40
+    rng = np.random.default_rng(k + code)
+    x = torch.full((m, k), -128, dtype=torch.int8, device=cuda)
+    packed = torch.as_tensor(potq.pack_codes(np.full((k, n), code, np.uint8))).to(cuda)
+    acc = -128 * 64 * k * (1 if code == 7 else -1)
+    es = torch.full((n,), 2.0 ** -10, dtype=torch.float32, device=cuda)
+    eb = torch.as_tensor((-acc * 2.0 ** -10 + rng.uniform(-60, 60, n)).astype(np.float32)).to(cuda)
+    for relu in (True, False):
+        got = shift_matmul.qmatmul_pot4(x, shift_matmul.prepare_weight(packed), es, eb, relu)
+        assert torch.equal(got, shift_matmul.qmatmul_pot4_plain(x, packed, es, eb, relu))
+
+
+def _lrn_near_boundaries(rng, dev, c, radius, s_in, alpha):
+    """Inputs and s_out values that put y / s_out on and next to half-integers:
+    s_out = v / (k + 1/2) for an element's v = y (before the division) and
+    each k, and the f32 values either side of it."""
+    x = torch.as_tensor(rng.integers(-127, 128, (257, c), dtype=np.int8)).to(dev)
+    kw = dict(radius=radius, alpha=alpha, beta=0.75, bias=1.0)
+    v = qlrn.lrn_f32(x.to(torch.float32) * np.float32(s_in), **kw).flatten()
+    big = v[v.abs() > 1].cpu().numpy()
+    cases = []
+    for k, vj in zip(range(0, 127, 6), big[::max(1, big.size // 22)]):
+        s0 = np.float32(abs(vj) / (k + 0.5))
+        for s_out in (s0, np.nextafter(s0, np.float32(1)), np.nextafter(s0, np.float32(0))):
+            cases.append(dict(kw, s_in=s_in, s_out=float(s_out)))
+    return x, cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,radius", [(64, 2), (192, 1), (13, 2)])
+@pytest.mark.parametrize("s_in,alpha", [(0.0312, 2e-4), (0.5, 1e-4)])
+def test_qlrn_kernel_on_half_boundaries(cuda, c, radius, s_in, alpha):
+    """Outputs on and next to every kind of rounding boundary: the
+    certified epilogue sends them to the exact steps (counted), and the
+    kernel equals qlrn_plain; C = 64 and 192 take the fast kernel, C = 13
+    the generic one."""
+    x, cases = _lrn_near_boundaries(np.random.default_rng(c + radius), cuda, c, radius,
+                                    s_in, alpha)
+    slow = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for kw in cases:
+        assert torch.equal(qlrn.qlrn(x, slow_count=slow, **kw), qlrn.qlrn_plain(x, **kw)), kw
+    assert int(slow) > 0
+
+
 # (b, h, w, cin, cm, cout, down, the plan: g, r, wc, c, bn): bands and whole
 # images, clusters of 1 to 16 CTAs, MMA widths 32 and 64, narrow bands,
 # ragged channels (Cm and Cout not multiples of 16, Cin padded)

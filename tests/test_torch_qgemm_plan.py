@@ -54,7 +54,7 @@ def _googlenet_merged_shapes():
     shapes = activation_shapes(eng.graph, eng.params)
     out = []
     for n in eng.graph.nodes:
-        if dispatch._runs_int8_gemm(n):
+        if dispatch.runs_gemm(n, "int8"):
             x = shapes[n.inputs[0]]
             out.append((int(np.prod(x[:-1])), x[-1], n.attrs["kshape"][-1]))
     return out

@@ -86,6 +86,16 @@ def f32(value: float) -> float:
     return float(np.float32(value))
 
 
+def sqrt_rn(t: torch.Tensor) -> torch.Tensor:
+    """The f32 square root of an f32 tensor, correctly rounded on every
+    device, as the kernels' ``__fsqrt_rn``: taken in float64 and rounded
+    once to f32, which for a square root gives the correctly rounded f32
+    (53 >= 2 * 24 + 2 bits). ``torch.sqrt`` on f32 is not correctly rounded
+    in every CPU build (some take a vectorized approximation, whose result
+    also varies with the tensor's address)."""
+    return torch.sqrt(t.to(torch.float64)).to(torch.float32)
+
+
 @functools.lru_cache(maxsize=256)
 def scalar(value: float, device: torch.device,
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -115,6 +125,13 @@ def check_operands(device: torch.device, **tensors: tuple[torch.Tensor, torch.dt
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+
+
+def raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as the pointer a launch takes,
+    from torch's own accessor (``torch.cuda.current_stream`` builds a
+    Stream object, 3.6 us a call on the card's host)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_launch(rc: int, kernel: str) -> None:

@@ -2,8 +2,8 @@
 // ldmatrix, int8 wgmma (m64nNk32, A from shared memory or registers), the
 // async-proxy fence, the 64-byte swizzled K-major tile layout wgmma reads,
 // and distributed shared memory in a thread-block cluster. Included by
-// qconv_pipe.cuh (the conv kernels), shift_matmul.cu (qmatmul_int8) and
-// qblocks.cu (the chain kernel).
+// qconv_pipe.cuh (the conv kernels), qmm_int8.cuh and qmm_pot4.cuh (the
+// GEMMs of shift_matmul.cu) and qblocks.cu (the chain kernel).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -101,6 +101,16 @@ __device__ __forceinline__ void wgmma_ss<32>(int* d, uint64_t a, uint64_t b) {
       "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
       "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, %16, %17, p;\n}\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(int* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
       : "l"(a), "l"(b), "r"(1)
       : "memory");
 }

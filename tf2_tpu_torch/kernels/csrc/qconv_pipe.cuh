@@ -1,7 +1,7 @@
 // The conv kernels' own main loops (qconv.cu): a pipelined implicit GEMM
 // for every layer whose C takes 4-byte copies, and a staged-patch kernel
-// for the rest (the 3- and 6-channel stems). qgemm.cuh's GEMM loop is not
-// used here; requant and mma_s8 are shared with it.
+// for the rest (the 3- and 6-channel stems). requant, mma_s8 and the pot4
+// decode come from qgemm.cuh.
 //
 // Both read a plan built on the host (kernels/qconv.py: plan): a table
 // that maps each K chunk to its tap and channel, so no K loop divides.
@@ -35,34 +35,6 @@ struct Params {
   int B, H, W, C, OH, OW, KH, KW, pad_top, pad_left, N, K, M;
   int relu, avec, bvec, tile_h, tile_w, splits;
 };
-
-// 0xFF in each byte whose bit 7 is set, else 0 (prmt's sign-replicate
-// selectors, which __byte_perm does not take)
-__device__ __forceinline__ uint32_t byte_signs(uint32_t x) {
-  uint32_t r;
-  asm("prmt.b32 %0, %1, 0, 0xBA98;\n" : "=r"(r) : "r"(x));
-  return r;
-}
-
-// Four pot4 codes -> four int8 values (decode_pot's function, four at a
-// time): m, the codes' low 3 bits, one in each byte; sign, 0xFF in the
-// bytes whose code has bit 3 set. +2^(m-1) and -2^(m-1) come from two
-// byte-permute tables (__byte_perm reads 3 bits of each selector nibble),
-// picked per byte by the sign.
-__device__ __forceinline__ uint32_t decode4(uint32_t m, uint32_t sign) {
-  const uint32_t sel = __byte_perm(m | (m >> 4), 0, 0x20);  // nibbles m0 m1 m2 m3
-  const uint32_t pos = __byte_perm(0x04020100u, 0x40201008u, sel);
-  const uint32_t neg = __byte_perm(0xFCFEFF00u, 0xC0E0F0F8u, sel);
-  return (pos & ~sign) | (neg & sign);
-}
-
-// The codes in the low and in the high nibbles of four packed bytes.
-__device__ __forceinline__ uint32_t decode4_lo(uint32_t c) {
-  return decode4(c & 0x07070707u, byte_signs(c << 4));
-}
-__device__ __forceinline__ uint32_t decode4_hi(uint32_t c) {
-  return decode4((c >> 4) & 0x07070707u, byte_signs(c));
-}
 
 // 4 x 4 byte transpose: c[i] byte j = r[j] byte i.
 __device__ __forceinline__ void transpose4(const uint32_t (&r)[4], uint32_t (&c)[4]) {

@@ -1,29 +1,18 @@
-// Shared core of the port's int8 kernels for Hopper (sm_90a): the requant
-// epilogues, the mma.sync wrapper and the pot4 decode, included by
-// shift_matmul.cu, qconv_pipe.cuh, qblocks.cu and qstem.cu; and the pot4
-// GEMM main loop of qmatmul_pot4 (shift_matmul.cu). qmatmul_int8 runs its
-// own main loop (qmm_int8.cuh).
+// Shared core of the port's int8 kernels for Hopper (sm_90a), included by
+// qmm_int8.cuh and qmm_pot4.cuh (the GEMMs of shift_matmul.cu),
+// qconv_pipe.cuh (the conv kernels), qblocks.cu (the chain kernel) and
+// qstem.cu: the requant epilogues, the mma.sync wrapper and the pot4
+// decode, one code at a time (decode_pot) and four at a time from packed
+// bytes (decode4_lo, decode4_hi).
 //
-// The kernel's first template argument is a tag type named after the Python
-// wrapper that launches it (the keys of kernels.launch_counts()), so a
-// profiler trace names each launch by its wrapper.
+// Each kernel's first template argument is a tag type named after the
+// Python wrapper that launches it (the keys of kernels.launch_counts()), so
+// a profiler trace names each launch by its wrapper.
 //
-// One block computes a 128 x 128 tile of Y = epilogue(A . B), where A is
-// (M, K) int8 row-major and B is 4-bit power-of-two codes packed two per
-// byte in split-half layout (K/2, N), decoded to int8 inside the block, on
-// the tensor cores with mma.sync.m16n8k32 (s8 x s8 -> s32).
-//
-// Split-half order: packed byte row r holds code k=r in its low nibble and
-// code k=r+K/2 in its high nibble. A K-step covers packed rows
-// [32s, 32s+32): its 64 reduction indices are {32s .. 32s+31} and
-// {K/2+32s .. K/2+32s+31}, and the A tile loads exactly those columns. The
-// integer sum does not depend on the order of k, so each packed byte is read
-// and decoded once per block, for any even K, and no tile straddles K/2.
-//
-// Accumulator range: |acc| <= 127 * max|w| * K. On the ResNet-50 path the
-// largest pot4 K is 4608 (127 * 64 * 4608 = 3.7e7) and the largest int8 K is
-// the fc's 2048 (127 * 127 * 2048 = 3.3e7), both far below 2^31: int32 holds
-// every sum exactly.
+// Accumulator range: |acc| <= 128 * max|w| * K (x may be -128). On the
+// zoo's paths the largest pot4 K is 4608 (128 * 64 * 4608 = 3.8e7) and the
+// largest int8 K the fc's 2048 (128 * 127 * 2048 = 3.3e7), both far below
+// 2^31: int32 holds every sum exactly, in any order.
 //
 // Epilogue: acc * es and + eb are rounded as two separate f32 operations
 // (__fmul_rn, __fadd_rn). A fused multiply-add would change the f32 value in
@@ -38,23 +27,6 @@
 
 namespace tf2 {
 namespace {
-
-constexpr int BM = 128;       // output rows (pixels) per block
-constexpr int BN = 128;       // output channels per block
-constexpr int BK = 64;        // reduction indices per K-step
-constexpr int LDS = BK + 16;  // smem row stride in bytes: 80 keeps the
-                              // fragment loads free of bank conflicts
-constexpr int THREADS = 256;  // 8 warps as 2 (M) x 4 (N), each 64 x 32
-
-struct Args {
-  const int8_t* x;    // (M, K) row-major
-  const uint8_t* w;   // (K/2, N) packed codes
-  const float* es;    // (N,)
-  const float* eb;    // (N,)
-  int8_t* y;          // (M, N)
-  int M, N, K;
-  int relu;
-};
 
 __device__ __forceinline__ int8_t decode_pot(uint32_t c) {
   const int m = c & 7;
@@ -88,147 +60,32 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Reduction index of tile column j (0..63) in K-step s of the split-half
-// order, or -1 past the end.
-__device__ __forceinline__ int k_of(int s, int j, int K) {
-  const int kh = K >> 1, r = s * 32 + (j & 31);
-  return r < kh ? (j < 32 ? r : kh + r) : -1;
+// 0xFF in each byte whose bit 7 is set, else 0 (prmt's sign-replicate
+// selectors, which __byte_perm does not take)
+__device__ __forceinline__ uint32_t byte_signs(uint32_t x) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, 0, 0xBA98;\n" : "=r"(r) : "r"(x));
+  return r;
 }
 
-union Chunk {
-  int4 v;
-  uint8_t b[16];
-};
-
-template <class Tag>
-__global__ void __launch_bounds__(THREADS, 2) qgemm_kernel(const Args p) {
-  __shared__ __align__(16) int8_t sA[BM * LDS];  // [m][j]
-  __shared__ __align__(16) int8_t sB[BN * LDS];  // [n][j], B transposed
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
-  // A loader: rows tid/4 and tid/4 + 64, 16-byte column chunk tid%4
-  const int aq = tid & 3;
-  const int arow[2] = {m0 + (tid >> 2), m0 + (tid >> 2) + 64};
-  // 16-byte loads where every 16 consecutive k of a chunk are contiguous
-  // in memory and aligned; the byte path covers the rest
-  const bool vec_a = p.K % 16 == 0 && (p.K / 2) % 16 == 0 && (uintptr_t)p.x % 16 == 0;
-  const bool vec_b = p.N % 16 == 0 && (uintptr_t)p.w % 16 == 0;
-  const int steps = (p.K / 2 + 31) / 32;
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
-
-  for (int s = 0; s < steps; ++s) {
-    // ---- A tile: sA[m][j] = A[m0 + m][k_of(s, j)] ----
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int8_t* dst = sA + ((tid >> 2) + 64 * i) * LDS + aq * 16;
-      const bool rv = arow[i] < p.M;
-      const int8_t* base = p.x + (size_t)arow[i] * p.K;
-      if (vec_a) {
-        const int k = k_of(s, aq * 16, p.K);
-        int4 v = make_int4(0, 0, 0, 0);
-        if (rv && k >= 0) v = *reinterpret_cast<const int4*>(base + k);
-        *reinterpret_cast<int4*>(dst) = v;
-      } else {
-#pragma unroll 4
-        for (int e = 0; e < 16; ++e) {
-          const int k = k_of(s, aq * 16 + e, p.K);
-          dst[e] = (rv && k >= 0) ? base[k] : 0;
-        }
-      }
-    }
-    // ---- B tile, transposed and decoded: sB[n][j] = B[k_of(s, j)][n0 + n];
-    // lane = packed row in this step, warp = 16-column chunk; each byte
-    // yields the low-half code (j = lane) and the high-half code (j = 32 +
-    // lane) ----
-    {
-      const int r = s * 32 + lane, nc = warp * 16, n = n0 + nc;
-      const bool rv = r < p.K / 2;
-      Chunk u;
-      u.v = make_int4(0, 0, 0, 0);
-      if (vec_b) {
-        if (rv && n < p.N) u.v = *reinterpret_cast<const int4*>(p.w + (size_t)r * p.N + n);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-          u.b[e] = (rv && n + e < p.N) ? p.w[(size_t)r * p.N + n + e] : 0;
-      }
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        int8_t* d = sB + (nc + e) * LDS;
-        d[lane] = decode_pot(u.b[e] & 15);
-        d[32 + lane] = decode_pot(u.b[e] >> 4);
-      }
-    }
-    __syncthreads();
-
-    // ---- tensor cores: two k32 MMA steps over the 64-column tile ----
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int8_t* pa = sA + (wm * 64 + i * 16 + g) * LDS + ks * 32 + t * 4;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(pa);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(pa + 8 * LDS);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(pa + 16);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(pa + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* pb = sB + (wn * 32 + j * 8 + g) * LDS + ks * 32 + t * 4;
-        bf[j][0] = *reinterpret_cast<const uint32_t*>(pb);
-        bf[j][1] = *reinterpret_cast<const uint32_t*>(pb + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bf[j]);
-    }
-    __syncthreads();
-  }
-
-  // ---- fused requant epilogue, int8 out ----
-  const bool relu = p.relu != 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + wn * 32 + j * 8 + t * 2;
-    float es[2], eb[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      es[c] = col + c < p.N ? p.es[col + c] : 0.0f;
-      eb[c] = col + c < p.N ? p.eb[col + c] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 64 + i * 16 + g + h * 8;
-        if (row >= p.M) continue;
-        int8_t* out = p.y + (size_t)row * p.N + col;
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          if (col + c < p.N) out[c] = requant(acc[i][j][2 * h + c], es[c], eb[c], relu);
-      }
-    }
-  }
+// Four pot4 codes -> four int8 values (decode_pot's function, four at a
+// time): m, the codes' low 3 bits, one in each byte; sign, 0xFF in the
+// bytes whose code has bit 3 set. +2^(m-1) and -2^(m-1) come from two
+// byte-permute tables (__byte_perm reads 3 bits of each selector nibble),
+// picked per byte by the sign.
+__device__ __forceinline__ uint32_t decode4(uint32_t m, uint32_t sign) {
+  const uint32_t sel = __byte_perm(m | (m >> 4), 0, 0x20);  // nibbles m0 m1 m2 m3
+  const uint32_t pos = __byte_perm(0x04020100u, 0x40201008u, sel);
+  const uint32_t neg = __byte_perm(0xFCFEFF00u, 0xC0E0F0F8u, sel);
+  return (pos & ~sign) | (neg & sign);
 }
 
-template <class Tag>
-int launch(const Args& p, void* stream) {
-  if (p.M > 0 && p.N > 0) {
-    const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
-    qgemm_kernel<Tag><<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
-  }
-  return (int)cudaGetLastError();
+// The codes in the low and in the high nibbles of four packed bytes.
+__device__ __forceinline__ uint32_t decode4_lo(uint32_t c) {
+  return decode4(c & 0x07070707u, byte_signs(c << 4));
+}
+__device__ __forceinline__ uint32_t decode4_hi(uint32_t c) {
+  return decode4((c >> 4) & 0x07070707u, byte_signs(c));
 }
 
 }  // namespace

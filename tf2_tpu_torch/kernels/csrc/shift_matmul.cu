@@ -19,22 +19,24 @@
 // (M = 64 or 1, K = 2048, N = 1000) and every GEMM at batch 1 read each
 // weight byte for one or a few rows and are bound by the weight bytes.
 //
-// What the design does about it.
-// tf2_qmatmul_pot4 (qgemm.cuh): a 128 x 128 output tile per block reads
-// each activation byte once for 128 output channels and each decoded weight
-// once for 128 pixels; 4-bit codes halve the weight bytes and are decoded
-// in shared memory; the requant epilogue runs on the accumulators. Not done
-// yet: a pipeline overlapping loads with MMA, wgmma (ROADMAP Queue 2 A).
-// tf2_qmatmul_int8 (qmm_int8.cuh): the weight arrives K-major, prepared
-// once at load, so both operands go by plain 16-byte cp.async into a
-// 5-slot ring in wgmma's swizzled layout, 3 steps ahead of int8 wgmma, one
-// step of wgmma in flight while the next copies are issued; the host plan
-// (kernels/shift_matmul.py: plan) picks the tile (256x128 for ViT's large
-// grids, down to 64x64 for small M), and splits K where the grid is under
-// one wave so that the fc and b1's GEMMs stream their weight bytes on every
-// SM; the epilogue stages the int8 tile (and the residual) in shared
-// memory so that rows move in 16-byte chunks.
+// What the design does about it. Both kernels read their weights K-major,
+// prepared once at load (kernels/shift_matmul.py: prepare_weight), and both
+// run int8 wgmma on 64-byte swizzled K-major tiles fed by a cp.async ring,
+// laid out by a host plan cached per shape, with split-K where K overflows
+// what a block holds or the grid is under one wave, and an epilogue that
+// stages the int8 tile in shared memory so that rows leave in 16-byte
+// chunks.
+// tf2_qmatmul_pot4 (qmm_pot4.cuh, plan: shift_matmul.plan_pot4): the 4-bit
+// codes stay packed in memory (half the weight bytes) and each block
+// decodes one N-tile's codes once into a slab resident in shared memory,
+// then, persistent, walks many M-tiles through it, A streaming through a
+// 4-slot ring; the tile width follows N (16, 32, 64 or 128).
+// tf2_qmatmul_int8 (qmm_int8.cuh, plan: shift_matmul.plan): one 128x128,
+// 128x64, 64x128 or 64x64 output tile a block, A and W^T tiles through a
+// 6-slot ring 4 steps ahead of the wgmma; split-K on grids under one wave,
+// so that the fc and b1's GEMMs stream their weight bytes on every SM.
 #include "qmm_int8.cuh"
+#include "qmm_pot4.cuh"
 
 namespace {
 
@@ -43,22 +45,52 @@ struct qmatmul_int8;
 
 }  // namespace
 
-// x (M, K) int8, wp (K/2, N) uint8 split-half PoT codes, es/eb (N,) f32,
-// y (M, N) int8. K must be even. Returns cudaGetLastError().
-extern "C" int tf2_qmatmul_pot4(const void* x, const void* wp, const void* es,
-                                const void* eb, void* y, int m, int n, int k,
-                                int relu, void* stream) {
-  tf2::Args p{};
+// One pot4 GEMM launch but its X and output, laid out by the wrapper once
+// for each weight, shape, X alignment and relu (kernels/shift_matmul.py:
+// Pot4Launch, the same fields in the same order). wt (N, ldw) uint8: the
+// packed codes' K-major rows (ldw % 16 == 0, 16-byte aligned, readable up
+// to K/2 in every row); es/eb (N,) f32; ws and counters: the plan's split-K
+// workspace, int32 zeros the kernel leaves zero (unused when splits is 1).
+// X's rows are ldx apart (ldx >= K, zero past K), K even. bm, bn, avec (X's
+// copy width: 16, else 4), ovec (the output's), splits, per (K steps a
+// split) and grid: the plan (kernels/shift_matmul.py: plan_pot4).
+struct Pot4Launch {
+  const void* wt;
+  const void* es;
+  const void* eb;
+  void* ws;
+  void* counters;
+  int m, n, k, ldx, ldw, relu, bm, bn, avec, ovec, splits, per, grid;
+};
+
+// x (M, ldx) int8; y (M, N) int8. Returns cudaGetLastError().
+extern "C" int tf2_qmatmul_pot4(const void* x, void* y, const Pot4Launch* l, void* stream) {
+  if (l->m <= 0 || l->n <= 0) return 0;
+  if (l->k <= 0 || l->k % 2 || l->splits < 1 || l->per < 1 || l->grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  tf2::pot4::Params p{};
   p.x = static_cast<const int8_t*>(x);
-  p.w = static_cast<const uint8_t*>(wp);
-  p.es = static_cast<const float*>(es);
-  p.eb = static_cast<const float*>(eb);
+  p.wt = static_cast<const uint8_t*>(l->wt);
+  p.es = static_cast<const float*>(l->es);
+  p.eb = static_cast<const float*>(l->eb);
   p.y = static_cast<int8_t*>(y);
-  p.M = m;
-  p.N = n;
-  p.K = k;
-  p.relu = relu;
-  return tf2::launch<qmatmul_pot4>(p, stream);
+  p.ws = static_cast<int*>(l->ws);
+  p.counters = static_cast<int*>(l->counters);
+  p.M = l->m;
+  p.N = l->n;
+  p.K = l->k;
+  p.ldx = l->ldx;
+  p.ldw = l->ldw;
+  p.relu = l->relu;
+  p.ovec = l->ovec;
+  // requant_byte's conversion through 1.5 * 2^23 is exact for |acc| <= 2^22;
+  // |acc| <= 128 * 64 * K (x may be -128, a decoded code is at most 64)
+  p.small = 128LL * 64 * l->k <= (1 << 22);
+  p.splits = l->splits;
+  p.per = l->per;
+  p.mtiles = (l->m + l->bm - 1) / l->bm;
+  p.items = (l->n + l->bn - 1) / l->bn * l->splits * p.mtiles;
+  return tf2::pot4::launch_plan<qmatmul_pot4>(p, l->bm, l->bn, l->avec, l->grid, stream);
 }
 
 // x (M, K) int8 (16, 8 or 4-byte copies: avec); wt (N, ldw) int8, the

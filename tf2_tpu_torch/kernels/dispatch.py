@@ -119,7 +119,7 @@ def qlayernorm(node, params, x_q: torch.Tensor) -> torch.Tensor:
     var = ((d * s2 - s1 * s1).to(torch.float64)
            / build.scalar(d * d, dev, torch.float64)).to(torch.float32)
     eps = build.f32(node.attrs.get("eps", 1e-6) / (s_in * s_in))
-    inv = build.scalar(1.0, dev) / torch.sqrt(var + eps)
+    inv = build.scalar(1.0, dev) / build.sqrt_rn(var + eps)
     so = build.scalar(build.f32(s_out), dev)
     y = ((x_q.to(torch.float32) - mu) * inv) * (gamma / so) + beta / so
     return _requant(y)
@@ -182,11 +182,12 @@ def chain_blocks(node, params) -> list[dict]:
     return blocks
 
 
-def _runs_int8_gemm(node) -> bool:
-    """Does the node run on the int8 GEMM kernel (``qmatmul_int8``)? An
-    int8 dense, or an int8 ungrouped 1x1 stride-1 conv without padding
-    (``qconv.fused_qconv2d``'s GEMM route)."""
-    if node.attrs.get("wfmt") != "int8":
+def runs_gemm(node, wfmt: str) -> bool:
+    """Does the node run on the GEMM kernel of weight format ``wfmt``
+    ("int8": ``qmatmul_int8``, "pot4": ``qmatmul_pot4``)? A dense, or an
+    ungrouped 1x1 stride-1 conv without padding (``qconv.fused_qconv2d``'s
+    GEMM route), with weights of that format."""
+    if node.attrs.get("wfmt") != wfmt:
         return False
     if node.op == "qdense":
         return True
@@ -198,15 +199,16 @@ def _runs_int8_gemm(node) -> bool:
 
 
 def prepare_weights(graph, params) -> dict:
-    """The params with every weight the int8 GEMM and the chain kernel read
-    replaced, once, by its K-major copy (``shift_matmul.prepare_weight``,
+    """The params with every weight the GEMMs and the chain kernel read
+    replaced, once, by its K-major copy (``shift_matmul.prepare_weight``:
+    the int8 GEMM's W^T rows and the pot4 GEMM's packed code rows;
     ``qblocks.prepare_w2``), seen through a view of the param's own shape:
     one copy of each weight, which the kernels read without preparing it
     and the plain versions read as the reference's layout."""
     out = dict(params)
     names = set()
     for node in graph.nodes:
-        if _runs_int8_gemm(node):
+        if runs_gemm(node, "int8") or runs_gemm(node, "pot4"):
             names.add(node.params[0])
         elif node.op == "qblockchain":
             names.update(node.params[0::3])  # each conv's weight, es, eb in turn

@@ -106,7 +106,7 @@ def qattention(qkv_q: torch.Tensor, *, heads: int, dim: int, s_in: float, s_out:
     rc = _lib().tf2_qattention(qkv_q.data_ptr(), y.data_ptr(), n, t, heads, hd,
                                qk_scale, pv_scale,
                                None if fallbacks is None else fallbacks.data_ptr(),
-                               torch.cuda.current_stream(qkv_q.device).cuda_stream)
+                               build.raw_stream(qkv_q.device))
     build.check_launch(rc, "qattention")
     LAUNCHES["qattention"] += 1
     return y

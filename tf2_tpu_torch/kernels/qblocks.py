@@ -348,7 +348,7 @@ def qblockchain(x_q: torch.Tensor, blocks) -> torch.Tensor:
     if not covers(x_q.shape, blocks):
         raise ValueError(f"qblockchain: the chain kernel does not take this chain on "
                          f"{tuple(x_q.shape)}")
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = build.raw_stream(dev)
     # pixels of 16-byte multiples, zero past the channels
     xs = _round16(cin)
     if xs != cin or x_q.data_ptr() % 16:

@@ -429,7 +429,7 @@ def _qconv(strides: tuple[int, int], x_q, wparam, eff_scale, eff_bias, *, kshape
         x_q.data_ptr(), wparam.data_ptr(), eff_scale.data_ptr(),
         eff_bias.data_ptr(), y.data_ptr(), b, h, w, cin, oh, ow, kh, kw, ph0, pw0,
         cout, int(wfmt == "pot4"), int(relu),
-        torch.cuda.current_stream(x_q.device).cuda_stream, table.data_ptr(), p.variant,
+        build.raw_stream(x_q.device), table.data_ptr(), p.variant,
         p.avec, p.bvec, p.tile_h, p.tile_w, ws.data_ptr(), counters.data_ptr(), p.splits)
     build.check_launch(rc, kernel)
     LAUNCHES[kernel] += 1

@@ -172,7 +172,7 @@ def qstem(x: torch.Tensor, wmat: torch.Tensor, eff_scale, eff_bias, *, kh: int, 
                           eff_bias.data_ptr(), y.data_ptr(), int(scale is not None),
                           build.f32(scale or 1.0), b, h, w, cin, oh, ow, kh, kw, g["ph0"],
                           g["pw0"], cout, kp, br, int(relu),
-                          torch.cuda.current_stream(x.device).cuda_stream)
+                          build.raw_stream(x.device))
     build.check_launch(rc, "qstem")
     LAUNCHES["qstem"] += 1
     return y
