@@ -33,9 +33,10 @@ Phases, in order; any failure exits non-zero before the last line:
              the GEMMs, bf16 F.conv2d for the convs) with CUDA events at
              the batch-64 shapes.
  5. main     Engine.run at batch 64 and 1 with launch counts per forward
-             (33 / 1 / 13 / 7 / 0 / 0 / 0 / 0 / 0), no weight prepared on
-             the forward (every Engine here: the int8 GEMMs' and chains'
-             weights are K-major from the load), finite (B, 1000) logits,
+             (33 / 1 / 13 / 6 / 0 / 0 / 0 / 0 / 1: the stem on qstem), no
+             weight prepared on the forward (every Engine here: the int8
+             GEMMs', chains' and stems' weights are in their kernels'
+             layouts from the load), finite (B, 1000) logits,
              every node equal to the plain path on the card and, at batch 1,
              to the Engine on the CPU; Engine.benchmark img/s and latency.
  6. chains   Engine(block_fusion=True) at batch 64 and 1 from the same
@@ -51,7 +52,7 @@ Phases, in order; any failure exits non-zero before the last line:
              taken printed, every kind required; each chain timed at batch
              64 (kernel, plain, bound) and its kernel at batch 1.
  7. fused    Engine(block_fusion=True).run at batch 64 and 1: launch counts
-             per forward (6 / 1 / 0 / 7 / 4 / 0 / 0 / 0 / 0), every node
+             per forward (6 / 1 / 0 / 6 / 4 / 0 / 0 / 0 / 1), every node
              equal to the plain path and, at batch 1, to the fused Engine on
              the CPU; logits equal to phase 5's bit for bit;
              Engine.benchmark beside it.
@@ -71,13 +72,13 @@ Phases, in order; any failure exits non-zero before the last line:
              at batch 64 (kernel, plain, bound, F.local_response_norm as
              the yardstick); its stem as in phase 12. Then both Engines as
              in phase 5: launch counts per forward
-             (37 / 1 / 19 / 1 / 0 / 2 / 0 / 0 / 0 default,
-             10 / 10 / 19 / 1 / 0 / 2 / 0 / 0 / 0 merged), every node equal
+             (37 / 1 / 19 / 0 / 0 / 2 / 0 / 0 / 1 default,
+             10 / 10 / 19 / 0 / 0 / 2 / 0 / 0 / 1 merged), every node equal
              to the plain path and at batch 1 to the CPU Engine, merged
              logits equal to the default's bit for bit, Engine.benchmark.
  9. squeezenet  the same for SqueezeNet v1.1, which has no LRN: launch
-             counts 16 / 1 / 8 / 1 / 0 / 0 / 0 / 0 / 0 default and
-             12 / 1 / 8 / 1 / 0 / 0 / 0 / 0 / 0 merged (fires 2-5 merge
+             counts 16 / 1 / 8 / 0 / 0 / 0 / 0 / 0 / 1 default and
+             12 / 1 / 8 / 0 / 0 / 0 / 0 / 0 / 1 merged (fires 2-5 merge
              e1x1 into an int8 3x3).
 10. vit      full-width ViT-B/16 (224x224, 1000 classes, depth 12, dim 768,
              12 heads) at W8 with the int8 residual stream, vit_b16 (T = 196)
@@ -106,26 +107,29 @@ Phases, in order; any failure exits non-zero before the last line:
              the plain path and at batch 1 to the CPU Engine, logits equal to
              phase 5's bit for bit, Engine.benchmark.
 12. stems    for each model's stem (ResNet-50 here, then inside phases 8, 9
-             and 13) at batch 64 and 1: fused_qstem on the f32 image and the
-             stem's real weights, eff_scale, eff_bias and s_in, its
-             launches counted from 0 (one qstem launch), its output equal to
-             the Engine's stem node and to qstem_plain, then on the int8
-             image, relu on and off, and +-127; the wpack2 node (the conv
-             kernel's stride-(2, 1) entry) equal to the Engine's stem node
-             and to its plain version, on random and +-127 packed inputs;
-             the space-to-depth route equal to the Engine's stem node. The
-             four routes timed side by side (the whole stem node and its
-             kernel alone) beside bf16 F.conv2d and the byte bound; qstem
-             and the stride-(2, 1) conv timed at ResNet-50's b64 stem into
-             the kernels line. Then ragged stems (k 5 and 1, odd H and W,
-             cin 1, 2, 4, cout 130, batch 3) and ragged packed convs.
+             and 13) at batch 64 and 1: the Engine's stem node (routed at
+             load to qstem, its weight prepared) on the f32 image, its
+             launches counted from 0 (one qstem launch, nothing prepared),
+             equal to qstem_plain and to the two-pass route (quantize +
+             qconv_s2, called directly); fused_qstem on the prepared and
+             the HWIO weight, on the f32 image and the int8 image with
+             -128 in it, relu on and off, and +-127; the wpack2 node (the
+             conv kernel's stride-(2, 1) entry) equal to the stem node and
+             to its plain version, on random and +-127 packed inputs; the
+             space-to-depth route equal to the stem node. The four routes
+             timed side by side (the whole stem node and its kernel alone)
+             beside bf16 F.conv2d and the byte bound; qstem and the
+             stride-(2, 1) conv timed at ResNet-50's b64 stem into the
+             kernels line. Then the ragged stems (RAGGED_STEMS: k 1-7, odd
+             H and W, cin 1-4, cout 8-256, VALID and SAME, the copy tails),
+             prepared and not, and ragged packed convs.
 13. ssd      full-width SSD (256x256, 21 classes, 1,008 priors, W4-PoT)
              under both score cases (random and background-dominated,
              tf2_tpu_torch/bench/ssd_cases.py): the artifact round trip,
              Engines at batch 64 and 1 and on the CPU at batch 1, every conv
              node against its plain version, its stem as in phase 12, then
              as in phase 5 with (B, 100, 6) detections: launch counts
-             0 / 0 / 8 / 6 / 0 / 0 / 0 / 0 / 0, every node equal to the
+             0 / 0 / 8 / 5 / 0 / 0 / 0 / 0 / 1, every node equal to the
              plain path and at batch 1 to the CPU Engine (the detections
              too), Engine.benchmark.
 14. vit 384  ViT-B/16 fine-tuned at 384x384 (vit_b16_cls, T = 577: K and
@@ -150,8 +154,7 @@ Launch counts are in the order (qmatmul_pot4, qmatmul_int8, qconv_s1,
 qconv_s2, qblockchain, qlrn, qattention, qconv_s2x1, qstem). Prints the
 summary line (every path's numbers, the stem routes, the run's wall time),
 the kernels JSON line (launches: qblockchain's from phase 7, qconv_s2x1's
-from phase 11's phase_stem Engine, qstem's from the b64 fused_qstem call on
-ResNet-50's stem (no Engine routes to it), qlrn's from phase 8,
+from phase 11's phase_stem Engine, qlrn's from phase 8,
 qattention's from phase 10, the others' from phase 5; times at ResNet-50's
 shapes, qlrn's at GoogLeNet's, qattention's at vit_b16's), the card line
 and, last, the contract line; the per-shape timings go to stderr as one
@@ -199,21 +202,21 @@ def _launches(*counts):
 
 # launches a forward: (pot4 GEMM, int8 GEMM, conv s1, conv s2, chain, qlrn,
 # attention, conv s2x1, stem)
-EXPECTED_LAUNCHES = _launches(33, 1, 13, 7, 0, 0, 0, 0, 0)
-FUSED_LAUNCHES = _launches(6, 1, 0, 7, 4, 0, 0, 0, 0)
+EXPECTED_LAUNCHES = _launches(33, 1, 13, 6, 0, 0, 0, 0, 1)
+FUSED_LAUNCHES = _launches(6, 1, 0, 6, 4, 0, 0, 0, 1)
 STEM_LAUNCHES = {"phase_stem": _launches(33, 1, 13, 6, 0, 0, 0, 1, 0),
                  "optimize": _launches(33, 1, 14, 6, 0, 0, 0, 0, 0)}
 RESNET_OPTIONS = {"default": {}, "block_fusion": {"block_fusion": True},
                   "phase_stem": {"phase_stem": True}, "optimize": {"optimize": True}}
 ZOO_OPTIONS = {"default": {}, "merge_1x1": {"merge_1x1": True}}
 ZOO_LAUNCHES = {  # model -> {option: launches}
-    "googlenet": {"default": _launches(37, 1, 19, 1, 0, 2, 0, 0, 0),
-                  "merge_1x1": _launches(10, 10, 19, 1, 0, 2, 0, 0, 0)},
-    "squeezenet_v1_1": {"default": _launches(16, 1, 8, 1, 0, 0, 0, 0, 0),
-                        "merge_1x1": _launches(12, 1, 8, 1, 0, 0, 0, 0, 0)},
+    "googlenet": {"default": _launches(37, 1, 19, 0, 0, 2, 0, 0, 1),
+                  "merge_1x1": _launches(10, 10, 19, 0, 0, 2, 0, 0, 1)},
+    "squeezenet_v1_1": {"default": _launches(16, 1, 8, 0, 0, 0, 0, 0, 1),
+                        "merge_1x1": _launches(12, 1, 8, 0, 0, 0, 0, 0, 1)},
 }
 VIT_LAUNCHES = _launches(0, 50, 0, 0, 0, 0, 12, 0, 0)
-SSD_LAUNCHES = _launches(0, 0, 8, 6, 0, 0, 0, 0, 0)
+SSD_LAUNCHES = _launches(0, 0, 8, 5, 0, 0, 0, 0, 1)
 # ragged int8 GEMMs (m, k, n, byte offset of x, residual): with the zoo's
 # shapes they reach every tile of the GEMM plan (128x128, 128x64, 64x128,
 # 64x64), split-K and not, x copied 16, 8, 4 bytes or padded, output widths
@@ -242,10 +245,16 @@ GIVEN_CHAIN_PLANS = [((2, 9, 13, 48, 64, 64, True), (1, 2, 13, 1, 64)),
                      ((4, 8, 8, 64, 32, 64, False), (3, 8, 8, 1, 32)),
                      ((1, 7, 7, 512, 512, 512, False), (1, 7, 7, 16, 32)),
                      ((2, 6, 6, 40, 16, 40, False), (1, 6, 6, 1, 32))]
-# ragged stems: (b, h, w, cin, cout, k, padding)
+# ragged stems (b, h, w, cin, cout, k, padding): k 1, 3, 5 and 7, odd H
+# and W, cin 1-4, cout 8-256 (one to eight 32-channel chunks, the last
+# partial), VALID and SAME, f32 rows 16 does not divide (41 x 1 x 4 bytes:
+# the 4-byte copies) and int8 rows 4 does not divide (read in the
+# conversion) (kernels/qstem.py: plan)
 RAGGED_STEMS = [(3, 37, 41, 1, 16, 5, "SAME"), (3, 33, 19, 2, 24, 5, "VALID"),
                 (1, 30, 30, 4, 130, 7, "SAME"), (3, 45, 31, 3, 64, 7, "SAME"),
-                (2, 9, 7, 3, 8, 1, "SAME")]
+                (2, 9, 7, 3, 8, 1, "SAME"), (2, 15, 13, 3, 96, 3, "SAME"),
+                (2, 17, 21, 2, 32, 3, "VALID"), (5, 23, 29, 1, 64, 3, "SAME"),
+                (2, 21, 19, 4, 32, 7, "VALID"), (2, 11, 11, 4, 256, 5, "SAME")]
 # (s_in, s_out) for qattention on random qkv: the softmax from flat to peaked
 ATTN_SCALES = [(0.005, 0.01), (0.02, 0.05), (0.1, 0.05)]
 # (s_in, s_out, alpha) for qlrn on random inputs: the synthetic scales keep
@@ -899,8 +908,9 @@ def phase_kernels(engines, images, stats, timed: bool, total: bool = True):
         plain_envs[b] = env
         groups: dict[str, list] = {}
         for node in eng.graph.nodes:
-            if node.op not in ("qconv2d", "qdense") or node.attrs.get("wfmt") == "wpack2":
-                continue  # the wpack2 stem: phase_stems
+            if (node.op not in ("qconv2d", "qdense") or node.attrs.get("wfmt") == "wpack2"
+                    or node.name in eng.stem_nodes):
+                continue  # the wpack2 stem and the stem on qstem: phase_stems
             x = env[node.inputs[0]]
             if "s_in" in node.attrs:
                 x = dispatch.quantize(x, node.attrs["s_in"])
@@ -1221,7 +1231,7 @@ def phase_zoo(name, images, stats):
     envs = phase_kernels(engines["default"], images, stats, timed=False)
     if any(n.op == "qlrn" for n in engines["default"][64].graph.nodes):
         phase_qlrn(engines["default"], envs, stats)
-    _, routes = phase_stems(name, engines["default"], cpu_engines["default"], images, stats)
+    routes = phase_stems(name, engines["default"], cpu_engines["default"], images, stats)
     launches, summary, logits = phase_main(name, engines["default"], cpu_engines["default"],
                                            images, envs, ZOO_LAUNCHES[name]["default"])
     summary["stem_routes"] = routes
@@ -1490,18 +1500,20 @@ def _bf16_conv(x, w_q, strides, padding):
 
 
 def phase_stems(name, engines, cpu_engine, images, stats, timed=False):
-    """Phase 12 for one model's stem, at batch 64 and 1. fused_qstem (the
-    entry) on the f32 image and the stem's real weights, eff_scale,
-    eff_bias and s_in, its launches counted from 0 (one, the qstem kernel);
-    its output equal to the Engine's stem node (quantize + the stride-2 conv
-    kernel) and to qstem_plain, then on the quantized int8 image, relu on
-    and off, and +-127; the wpack2 node (the conv kernel's stride-(2, 1)
-    entry) equal to the Engine's stem node and to its plain version, on
-    random and +-127 packed inputs; the space_to_depth route equal to the
-    Engine's stem node. Times the four routes (the whole node and its
-    kernel alone) and bf16 F.conv2d; with ``timed`` (ResNet-50), qstem and
-    the stride-(2, 1) conv at batch 64 into the kernels line. -> (launch
-    counts of the b64 fused_qstem call, route times by batch)."""
+    """Phase 12 for one model's stem, at batch 64 and 1. The Engine's stem
+    node (routed at load to the qstem kernel, ``Engine.stem_nodes``, its
+    weight prepared) on the f32 image, its launches counted from 0 (one
+    qstem launch, no weight prepared), equal to qstem_plain; the two-pass
+    route (a stem qstem does not take), quantize + the stride-2 conv kernel
+    called directly (the yardstick), equal to it; fused_qstem on the prepared and on the HWIO
+    weight, on the f32 image and on the quantized int8 image with -128 in
+    it, relu on and off, and +-127; the wpack2 node (the conv kernel's
+    stride-(2, 1) entry) equal to the Engine's stem node and to its plain
+    version, on random and +-127 packed inputs; the space_to_depth route
+    equal to the Engine's stem node. Times the four routes (the whole stem
+    node and its kernel alone) and bf16 F.conv2d; with ``timed``
+    (ResNet-50), qstem and the stride-(2, 1) conv at batch 64 into the
+    kernels line. -> route times by batch."""
     from tf2_tpu_torch import kernels
     from tf2_tpu_torch.graph.execute import _OP_IMPLS
     from tf2_tpu_torch.kernels import dispatch, qconv, qstem
@@ -1520,34 +1532,46 @@ def phase_stems(name, engines, cpu_engine, images, stats, timed=False):
         xs = _OP_IMPLS["space_to_depth"][0](space, {}, _OP_IMPLS["pad"][0](pad, {}, x))
         return dispatch.qconv2d(conv, sparams, xs)
 
-    launches, routes = None, {}
+    routes = {}
     for b, eng in engines.items():
         x = images[b]
-        w_q, es, eb = (eng.params[p] for p in stem.params)
-        w_q = w_q.reshape(kh, kw, cin, cout)
+        if stem.name not in eng.stem_nodes:
+            raise RuntimeError(f"{name} b{b}: the Engine did not route its stem to qstem "
+                               f"(stem_nodes {sorted(eng.stem_nodes)})")
+        w_p, es, eb = (eng.params[p] for p in stem.params)
+        w_q = w_p.contiguous()  # HWIO, as the artifact holds it
         kernels.reset_launch_counts()
-        y = qstem.fused_qstem(x, w_q, es, eb, padding=padding, relu=relu, scale=s_in)
+        y = dispatch.qconv2d(stem, eng.params, x)  # the Engine's stem node
         counts = kernels.launch_counts()
-        if counts != {**dict.fromkeys(counts, 0), "qstem": 1}:
-            raise RuntimeError(f"{name} b{b}: fused_qstem launched {counts}")
-        launches = counts if b == 64 else launches
-        want = dispatch.qconv2d(stem, eng.params, x)  # the Engine's stem node
-        stats.check("qstem", f"{name} b{b} against the Engine's stem node", y, want)
+        if counts != {**dict.fromkeys(counts, 0), "qstem": 1} or any(
+                kernels.prepared_per_call().values()):
+            raise RuntimeError(f"{name} b{b}: the stem node launched {counts}, prepared "
+                               f"{kernels.prepared_per_call()}")
+        kw_ = dict(padding=padding, relu=relu, scale=s_in)
+        want = qstem.fused_qstem(x, w_q, es, eb, plain=True, **kw_)
+        stats.check("qstem", f"{name} b{b} the Engine's stem node", y, want)
+        pads = qconv.resolve_pads(padding, kh, kw, 2, 2, x.shape[1], x.shape[2])
+        conv_kw = dict(kshape=(kh, kw, cin, cout), pads=pads, relu=relu, wfmt="int8")
         x_q = dispatch.quantize(x, s_in)
-        for r, (xin, scale) in itertools.product((relu, not relu), ((x, s_in), (x_q, None))):
+        stats.check("qconv_s2", f"{name} b{b} quantize + qconv_s2 against the stem node",
+                    qconv.qconv_s2(x_q, w_q, es, eb, **conv_kw), y)
+        x_q128 = x_q.clone()
+        x_q128.view(-1)[::7] = -128  # the int8 path takes -128 as it is
+        for r, (xin, scale), w in itertools.product((relu, not relu),
+                                                    ((x, s_in), (x_q128, None)), (w_p, w_q)):
             kw_ = dict(padding=padding, relu=r, scale=scale)
-            stats.check("qstem", f"{name} b{b} relu={r} scale={scale}",
-                        qstem.fused_qstem(xin, w_q, es, eb, **kw_),
+            stats.check("qstem", f"{name} b{b} relu={r} scale={scale} "
+                        f"prepared={w is w_p}", qstem.fused_qstem(xin, w, es, eb, **kw_),
                         qstem.fused_qstem(xin, w_q, es, eb, plain=True, **kw_))
         for extreme in (True, False):
             xa, wa, esa = _stem_adversarial(rng, x_q, w_q, extreme)
             kw_ = dict(padding=padding, relu=relu)
             stats.check("qstem", f"{name} b{b} +-127 extreme={extreme}",
-                        qstem.fused_qstem(xa, wa, esa, eb, **kw_),
+                        qstem.fused_qstem(xa, qstem.prepare_weight(wa), esa, eb, **kw_),
                         qstem.fused_qstem(xa, wa, esa, eb, plain=True, **kw_))
         # the wpack2 stem and its stride-(2, 1) conv
         y2 = dispatch.qconv2d(packed, pparams, x)
-        stats.check("qconv_s2x1", f"{name} b{b} wpack2 against the Engine's stem node", y2, want)
+        stats.check("qconv_s2x1", f"{name} b{b} wpack2 against the Engine's stem node", y2, y)
         stats.check("qconv_s2x1", f"{name} b{b} wpack2 node", y2,
                     dispatch.qconv2d(packed, pparams, x, plain=True))
         xp = dispatch.pack_w_pairs(x_q, packed.attrs["pack_pad_w"])
@@ -1562,20 +1586,16 @@ def phase_stems(name, engines, cpu_engine, images, stats, timed=False):
                         qconv.qconv_plain(xa, wa, esa, eb, strides=(2, 1), relu=relu, **pk))
         if s2d:
             stats.check("qconv_s1", f"{name} b{b} space_to_depth against the Engine's stem node",
-                        s2d_route(x), want)
+                        s2d_route(x), y)
         # the routes side by side: the whole stem node, and its kernel alone
+        # (the qstem node is one launch of the kernel)
         n = 20 if b == 64 else 100
-        pads = qconv.resolve_pads(padding, kh, kw, 2, 2, x.shape[1], x.shape[2])
-        wmat = qstem.fold_weight(w_q)
-        r = {"conv_s2": (lambda: dispatch.qconv2d(stem, eng.params, x),
-                         lambda: qconv.qconv_s2(x_q, w_q, es, eb, kshape=(kh, kw, cin, cout),
-                                                pads=pads, relu=relu, wfmt="int8")),
+        r = {"qstem": (lambda: dispatch.qconv2d(stem, eng.params, x),) * 2,
+             "conv_s2": (lambda: qconv.qconv_s2(dispatch.quantize(x, s_in), w_q, es, eb,
+                                                **conv_kw),
+                         lambda: qconv.qconv_s2(x_q, w_q, es, eb, **conv_kw)),
              "wpack2": (lambda: dispatch.qconv2d(packed, pparams, x),
-                        lambda: qconv.qconv_s2x1(xp, wp, es, eb, relu=relu, **pk)),
-             "qstem": (lambda: qstem.fused_qstem(x, w_q, es, eb, padding=padding, relu=relu,
-                                                 scale=s_in),
-                       lambda: qstem.qstem(x, wmat, es, eb, kh=kh, kw=kw, padding=padding,
-                                           relu=relu, scale=s_in))}
+                        lambda: qconv.qconv_s2x1(xp, wp, es, eb, relu=relu, **pk))}
         if s2d:
             conv = s2d[2]
             xs_q = dispatch.quantize(_OP_IMPLS["space_to_depth"][0](
@@ -1590,19 +1610,20 @@ def phase_stems(name, engines, cpu_engine, images, stats, timed=False):
         routes[f"b{b}"]["bytes_bound_ms"] = (x.numel() * 4 + y.numel()) / H100_BYTES_PER_S * 1e3
         log(f"{name} stem routes b{b}: {json.dumps(routes[f'b{b}'])}")
         if timed and b == 64:
-            _time_stem_kernels(stats, x, wmat, w_q, es, eb, y, stem, xp, wp, pk, y2)
+            _time_stem_kernels(stats, x, w_q, es, eb, y, stem, eng.params, xp, wp, pk, y2)
     stats.raise_on_mismatch(f"{name}: the stem kernels disagree with their plain versions")
-    return launches, routes
+    return routes
 
 
-def _time_stem_kernels(stats, x, wmat, w_q, es, eb, y, stem, xp, wp, pk, y2):
-    """qstem and the stride-(2, 1) conv at the ResNet-50 b64 stem into the
-    kernels line (one launch a forward each), beside their plain versions,
-    bf16 F.conv2d and their bounds: qstem reads the f32 image, the folded
-    weight, es and eb once and writes the int8 output once, 2 operations a
-    multiply-accumulate inside the image; the packed conv reads the packed
-    int8 image (its W pads included) instead."""
-    from tf2_tpu_torch.kernels import qconv, qstem
+def _time_stem_kernels(stats, x, w_q, es, eb, y, stem, params, xp, wp, pk, y2):
+    """qstem (the Engine's stem node, one launch) and the stride-(2, 1) conv
+    at the ResNet-50 b64 stem into the kernels line (one launch a forward
+    each), beside their plain versions, bf16 F.conv2d and their bounds:
+    qstem reads the f32 image, the weight, es and eb once and writes the
+    int8 output once, 2 operations a multiply-accumulate inside the image;
+    the packed conv reads the packed int8 image (its W pads included)
+    instead."""
+    from tf2_tpu_torch.kernels import dispatch, qconv, qstem
 
     kh, kw, cin, cout = stem.attrs["kshape"]
     s_in, relu, padding = stem.attrs["s_in"], stem.attrs["relu"], stem.attrs["padding"]
@@ -1610,12 +1631,15 @@ def _time_stem_kernels(stats, x, wmat, w_q, es, eb, y, stem, xp, wp, pk, y2):
     (ph0, _), (pw0, _) = qconv.resolve_pads(padding, kh, kw, 2, 2, h, w)
     _, taps_y = _taps(h, kh, 2, ph0, y.shape[1])
     _, taps_x = _taps(w, kw, 2, pw0, y.shape[2])
-    kwq = dict(kh=kh, kw=kw, padding=padding, relu=relu, scale=s_in)
-    stats.add("qstem", {"node": stem.name, "x": list(x.shape), "kshape": [kh, kw, cin, cout]},
-              cuda_ms(lambda: qstem.qstem(x, wmat, es, eb, **kwq), 20),
-              cuda_ms(lambda: qstem.qstem_plain(x, wmat, es, eb, **kwq), 3),
+    wmat = qstem.fold_weight(w_q)
+    plan = qstem.plan(b, h, w, cin, cout, kh, qstem._norm_padding(padding))
+    stats.add("qstem", {"node": stem.name, "x": list(x.shape), "kshape": [kh, kw, cin, cout],
+                        "plan": plan.name},
+              cuda_ms(lambda: dispatch.qconv2d(stem, params, x), 20),
+              cuda_ms(lambda: qstem.qstem_plain(x, wmat, es, eb, kh=kh, kw=kw, padding=padding,
+                                                relu=relu, scale=s_in), 3),
               cuda_ms(_bf16_conv(x, w_q, 2, kh // 2 if padding == "SAME" else 0), 20),
-              (x.numel() * 4 + wmat.numel() + 8 * cout + y.numel()) / H100_BYTES_PER_S * 1e3,
+              (x.numel() * 4 + w_q.numel() + 8 * cout + y.numel()) / H100_BYTES_PER_S * 1e3,
               2.0 * b * taps_y * taps_x * cin * cout / H100_INT8_OPS_PER_S * 1e3, 1)
     pkh, pkw, pcin, _ = pk["kshape"]
     (lo_h, _), _ = pk["pads"]
@@ -1631,9 +1655,12 @@ def _time_stem_kernels(stats, x, wmat, w_q, es, eb, y, stem, xp, wp, pk, y2):
 
 
 def phase_ragged_stems(stats, dev):
-    """The stem kernel off the zoo's shapes (k 5 and 1, odd H and W, cin 1,
-    2 and 4, cout 130, batch 3) on f32 and int8 input, relu on and off; the
-    stride-(2, 1) conv on ragged packed inputs."""
+    """The stem kernel off the zoo's shapes (RAGGED_STEMS) on f32 input and
+    on int8 input with -128 in it, relu on and off, its weight prepared
+    (as the Engine holds it) and as given (prepared on the call, counted);
+    on f32 inputs on and next to every half-integer multiple of the scale;
+    the stride-(2, 1) conv on ragged packed inputs."""
+    from tf2_tpu_torch import kernels
     from tf2_tpu_torch.kernels import qconv, qstem
 
     rng = np.random.default_rng(9)
@@ -1643,12 +1670,35 @@ def phase_ragged_stems(stats, dev):
                              .astype(np.float32)).to(dev)
         eb = torch.as_tensor(rng.normal(0, 20, cout).astype(np.float32)).to(dev)
         xf = torch.as_tensor(rng.standard_normal((b, h, w, cin), dtype=np.float32)).to(dev)
-        xq = torch.as_tensor(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)).to(dev)
-        for relu, (xin, scale) in itertools.product((False, True), ((xf, 0.013), (xq, None))):
+        xq = torch.as_tensor(rng.integers(-128, 128, (b, h, w, cin), dtype=np.int8)).to(dev)
+        for relu, (xin, scale), wt in itertools.product(
+                (False, True), ((xf, 0.013), (xq, None)), (qstem.prepare_weight(w_q), w_q)):
             kw_ = dict(padding=padding, relu=relu, scale=scale)
-            stats.check("qstem", f"ragged {b}x{h}x{w}x{cin} k{k} {padding} -> {cout} {kw_}",
-                        qstem.fused_qstem(xin, w_q, es, eb, **kw_),
+            kernels.reset_launch_counts()
+            got = qstem.fused_qstem(xin, wt, es, eb, **kw_)
+            prepared = qstem.prepared_ld(wt) is not None
+            if kernels.prepared_per_call()["qstem"] != (0 if prepared else 1):
+                raise RuntimeError(f"qstem {b}x{h}x{w}x{cin}: per-call preparation miscounted")
+            stats.check("qstem", f"ragged {b}x{h}x{w}x{cin} k{k} {padding} -> {cout} {kw_} "
+                        f"prepared={prepared}", got,
                         qstem.fused_qstem(xin, w_q, es, eb, plain=True, **kw_))
+        p = qstem.plan(b, h, w, cin, cout, k, padding)
+        log(f"ragged stem {b}x{h}x{w}x{cin} k{k} {padding} -> {cout}: {p.name}")
+    # the certified quantize: every f32 input on a half-integer multiple of
+    # the scale, and its f32 neighbours, where the division decides
+    w_q = torch.as_tensor(rng.integers(-127, 128, (7, 7, 3, 64), dtype=np.int8)).to(dev)
+    es = torch.full((64,), 2e-4, dtype=torch.float32, device=dev)
+    eb = torch.zeros(64, dtype=torch.float32, device=dev)
+    for scale in (0.013, 0.02, 0.5, 1.7):
+        odd = rng.integers(-140, 140, (2, 29, 29, 3)) + 0.5
+        half = (odd * np.float32(scale)).astype(np.float32)
+        for xv in (half, np.nextafter(half, np.float32(np.inf)),
+                   np.nextafter(half, np.float32(-np.inf))):
+            x = torch.as_tensor(xv).to(dev)
+            kw_ = dict(padding="SAME", relu=False, scale=scale)
+            stats.check("qstem", f"quantize near .5, scale {scale}",
+                        qstem.fused_qstem(x, qstem.prepare_weight(w_q), es, eb, **kw_),
+                        qstem.fused_qstem(x, w_q, es, eb, plain=True, **kw_))
     for b, h, w, cin, cout, kh, kw, pads in [(3, 17, 9, 2, 40, 5, 3, ((2, 2), (0, 0))),
                                              (2, 63, 32, 6, 64, 3, 2, ((0, 0), (0, 0))),
                                              (1, 31, 16, 8, 72, 7, 4, ((3, 3), (0, 0)))]:
@@ -1687,8 +1737,8 @@ def phase_ssd(stats):
                                             {"default": {}})
         envs = phase_kernels(engines["default"], images, stats, timed=False)
         if case == CASES[0]:
-            _, summary["stem_routes"] = phase_stems("ssd", engines["default"],
-                                                    cpu_engines["default"], images, stats)
+            summary["stem_routes"] = phase_stems("ssd", engines["default"],
+                                                 cpu_engines["default"], images, stats)
         _, summary[case], dets = phase_main(f"ssd {case}", engines["default"],
                                             cpu_engines["default"], images, envs, SSD_LAUNCHES,
                                             out_shape=(100, 6))
@@ -1724,9 +1774,8 @@ def main() -> int:
             STEM_LAUNCHES[option], same_as=logits)
         if option == "phase_stem":
             launches["qconv_s2x1"] = option_launches["qconv_s2x1"]
-    stem_launches, summary["stem_routes"] = phase_stems(
+    summary["stem_routes"] = phase_stems(
         "resnet50", engines["default"], cpu_engines["default"], images, stats, timed=True)
-    launches["qstem"] = stem_launches["qstem"]
     phase_ragged_stems(stats, images[1].device)
     del engines, cpu_engines, plain_envs, fused_envs, envs
     zoo = {}

@@ -137,9 +137,10 @@ def test_engine_every_node_equals_plain(cuda):
     kernels.reset_launch_counts()
     logits = eng.run(image=x)
     assert kernels.launch_counts() == {"qmatmul_pot4": 9, "qmatmul_int8": 1,
-                                       "qconv_s1": 1, "qconv_s2": 7, "qblockchain": 0,
+                                       "qconv_s1": 1, "qconv_s2": 6, "qblockchain": 0,
                                        "qlrn": 0, "qattention": 0,
-                                       "qconv_s2x1": 0, "qstem": 0}
+                                       "qconv_s2x1": 0, "qstem": 1}
+    assert eng.stem_nodes == {"conv1_relu"}
     assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
@@ -226,9 +227,9 @@ def test_block_fused_engine_every_node_equals_plain(cuda):
     kernels.reset_launch_counts()
     logits = eng.run(image=x)
     assert kernels.launch_counts() == {"qmatmul_pot4": 6, "qmatmul_int8": 1,
-                                       "qconv_s1": 0, "qconv_s2": 7, "qblockchain": 4,
+                                       "qconv_s1": 0, "qconv_s2": 6, "qblockchain": 4,
                                        "qlrn": 0, "qattention": 0,
-                                       "qconv_s2x1": 0, "qstem": 0}
+                                       "qconv_s2x1": 0, "qstem": 1}
     assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
@@ -599,11 +600,11 @@ def test_vit_engine_every_node_equals_plain(cuda, name, weight_bits):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,image,launches", [
     ("googlenet", 64, {"qmatmul_pot4": 37, "qmatmul_int8": 1, "qconv_s1": 19,
-                       "qconv_s2": 1, "qblockchain": 0, "qlrn": 2, "qattention": 0,
-                       "qconv_s2x1": 0, "qstem": 0}),
+                       "qconv_s2": 0, "qblockchain": 0, "qlrn": 2, "qattention": 0,
+                       "qconv_s2x1": 0, "qstem": 1}),
     ("squeezenet_v1_1", 96, {"qmatmul_pot4": 16, "qmatmul_int8": 1, "qconv_s1": 8,
-                             "qconv_s2": 1, "qblockchain": 0, "qlrn": 0, "qattention": 0,
-                             "qconv_s2x1": 0, "qstem": 0}),
+                             "qconv_s2": 0, "qblockchain": 0, "qlrn": 0, "qattention": 0,
+                             "qconv_s2x1": 0, "qstem": 1}),
 ])
 def test_zoo_engines_every_node_equals_plain(cuda, name, image, launches):
     """GoogLeNet and SqueezeNet at batch 2 on the card, merge_1x1 off and
@@ -668,8 +669,8 @@ def _stem_case(rng, b, h, w, cin, cout, k, extreme):
     if extreme:
         x = rng.choice(np.array([-127, 127], np.int8), size=(b, h, w, cin))
         w_q = rng.choice(np.array([-127, 127], np.int8), size=(k, k, cin, cout))
-    else:
-        x = rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)
+    else:  # the int8 path takes -128 as it is
+        x = rng.integers(-128, 128, (b, h, w, cin), dtype=np.int8)
         w_q = rng.integers(-127, 128, (k, k, cin, cout), dtype=np.int8)
     es = (rng.uniform(0.5, 4.0, cout) / (127 * np.sqrt(k * k * cin))).astype(np.float32)
     eb = rng.normal(0, 20, cout).astype(np.float32)
@@ -681,13 +682,21 @@ def _stem_case(rng, b, h, w, cin, cout, k, extreme):
     (2, 224, 224, 3, 64, 7, "SAME"),     # ResNet-50 / GoogLeNet
     (2, 224, 224, 3, 64, 3, "VALID"),    # SqueezeNet v1.1
     (2, 256, 256, 3, 32, 3, "SAME"),     # SSD
-    (3, 37, 41, 1, 16, 5, "SAME"), (3, 33, 19, 2, 24, 5, "VALID"),
-    (1, 30, 30, 4, 130, 7, "SAME"),      # cout above one 64-channel chunk
-    (2, 9, 7, 3, 8, 1, "SAME")])
+    (3, 37, 41, 1, 16, 5, "SAME"),       # f32 rows of 164 bytes: 4-byte copies
+    (3, 33, 19, 2, 24, 5, "VALID"),      # int8 rows of 38 bytes: read in the conversion
+    (1, 30, 30, 4, 130, 7, "SAME"),      # five 32-channel chunks, the last of 2
+    (2, 9, 7, 3, 8, 1, "SAME"),
+    (2, 15, 13, 3, 96, 3, "SAME"),       # three chunks
+    (2, 17, 21, 2, 32, 3, "VALID"),
+    (5, 23, 29, 1, 64, 3, "SAME"),
+    (2, 21, 19, 4, 32, 7, "VALID")])
 @pytest.mark.parametrize("relu", [False, True])
 def test_qstem_kernel_matches_plain(cuda, b, h, w, cin, cout, k, padding, relu):
-    """The stem kernel on the zoo's stems and ragged ones, with the f32
-    image quantized inside (scale) and on int8 input, random and +-127."""
+    """The stem kernel on the zoo's stems and ragged ones (k 1-7, odd H
+    and W, cin 1-4, cout 8-130, VALID and SAME, rows whose bytes 16 does
+    not divide), with the f32 image quantized inside (scale) and on int8
+    input (-128 included), random and +-127; the weight folded
+    (``fold_weight``, prepared on the call)."""
     rng = np.random.default_rng(h + w + cin + k)
     for extreme in (False, True):
         x, w_q, es, eb = _stem_case(rng, b, h, w, cin, cout, k, extreme)
@@ -707,6 +716,48 @@ def test_qstem_kernel_matches_plain(cuda, b, h, w, cin, cout, k, padding, relu):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.013, 0.02, 0.5, 1.7])
+def test_qstem_quantize_on_half_boundaries(cuda, scale):
+    """The kernel's certified quantize (x times the scale's f32 reciprocal,
+    the division where that lies near a half-integer) on inputs on and next
+    to every half-integer multiple of the scale: the IEEE division's bits."""
+    rng = np.random.default_rng(int(scale * 1000))
+    _, w_q, es, eb = _stem_case(rng, 2, 29, 29, 3, 64, 7, False)
+    w_q, es, eb = _tensors(cuda, w_q, es, eb)
+    half = ((rng.integers(-140, 140, (2, 29, 29, 3)) + 0.5) * np.float32(scale)).astype(np.float32)
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+    for xv in (half, np.nextafter(half, up), np.nextafter(half, down)):
+        x = torch.as_tensor(xv).to(cuda)
+        kw = dict(padding="SAME", relu=False, scale=scale)
+        got = qstem.fused_qstem(x, qstem.prepare_weight(w_q), es, eb, **kw)
+        assert torch.equal(got, qstem.fused_qstem(x, w_q, es, eb, plain=True, **kw))
+
+
+@pytest.mark.cuda
+def test_fused_qstem_on_prepared_weights(cuda):
+    """``fused_qstem`` on ``prepare_weight``'s view prepares nothing and
+    lays each launch out once; on the HWIO weight it prepares on each call
+    (counted); both equal the plain version; a shape the plan has no
+    launch for raises."""
+    rng = np.random.default_rng(4)
+    x, w_q, es, eb = _stem_case(rng, 3, 64, 64, 3, 64, 7, False)
+    xf = torch.as_tensor(x.astype(np.float32) * np.float32(0.02)).to(cuda)
+    w_q, es, eb = _tensors(cuda, w_q, es, eb)
+    wp = qstem.prepare_weight(w_q)
+    kw = dict(padding="SAME", relu=True, scale=0.02)
+    want = qstem.fused_qstem(xf, w_q, es, eb, plain=True, **kw)
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        assert torch.equal(qstem.fused_qstem(xf, wp, es, eb, **kw), want)
+    assert kernels.prepared_per_call()["qstem"] == 0 and kernels.launch_counts()["qstem"] == 3
+    assert torch.equal(qstem.fused_qstem(xf, w_q, es, eb, **kw), want)
+    assert kernels.prepared_per_call()["qstem"] == 1
+    w9 = torch.zeros((9, 9, 3, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="no launch"):
+        qstem.fused_qstem(xf, w9, es[:8], eb[:8], **kw)
+
+
+@pytest.mark.cuda
 def test_stem_engines_every_node_equals_plain(cuda):
     """A small ResNet with Engine(phase_stem=True) and Engine(optimize=True)
     on the card: launch counts, every node equal to the plain path, logits
@@ -720,10 +771,10 @@ def test_stem_engines_every_node_equals_plain(cuda):
     x = np.random.default_rng(0).standard_normal((2, 64, 64, 3)).astype(np.float32)
     xt = torch.as_tensor(x).to(cuda)
     default = Engine(art.graph, art.params).run(image=x)
-    base = {"qmatmul_pot4": 9, "qmatmul_int8": 1, "qconv_s1": 1, "qconv_s2": 7,
+    # the default's counts, its stem (one qstem launch) taken off
+    base = {"qmatmul_pot4": 9, "qmatmul_int8": 1, "qconv_s1": 1, "qconv_s2": 6,
             "qblockchain": 0, "qlrn": 0, "qattention": 0, "qconv_s2x1": 0, "qstem": 0}
-    for flag, moved in (("phase_stem", {"qconv_s2": 6, "qconv_s2x1": 1}),
-                        ("optimize", {"qconv_s2": 6, "qconv_s1": 2})):
+    for flag, moved in (("phase_stem", {"qconv_s2x1": 1}), ("optimize", {"qconv_s1": 2})):
         eng = Engine(art.graph, art.params, **{flag: True})
         kernels.reset_launch_counts()
         logits = eng.run(image=x)
@@ -741,8 +792,8 @@ def test_stem_engines_every_node_equals_plain(cuda):
 @pytest.mark.parametrize("case", ["random", "background"])
 def test_ssd_engine_every_node_equals_plain(cuda, case):
     """A small SSD (image 128) on the card under both score cases: 8
-    qconv_s1 and 6 qconv_s2 launches a forward, every node equal to the
-    plain path, detections equal to the Engine on the CPU."""
+    qconv_s1, 5 qconv_s2 and 1 qstem launches a forward, every node equal
+    to the plain path, detections equal to the Engine on the CPU."""
     from tf2_tpu_torch.bench.ssd_cases import case_params
     from tf2_tpu_torch.graph import execute
     from tf2_tpu_torch.models import synthetic_quantized
@@ -755,7 +806,7 @@ def test_ssd_engine_every_node_equals_plain(cuda, case):
     kernels.reset_launch_counts()
     dets = eng.run(image=x)
     counts = kernels.launch_counts()
-    assert (counts["qconv_s1"], counts["qconv_s2"]) == (8, 6)
+    assert (counts["qconv_s1"], counts["qconv_s2"], counts["qstem"]) == (8, 5, 1)
     assert sum(counts.values()) == 14
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)

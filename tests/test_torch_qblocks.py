@@ -101,8 +101,12 @@ def test_plain_chain_matches_reference_chain(case):
 
 
 def test_plain_chain_matches_pallas_kernel():
+    """Through ``fused_qblockchain(plain=True)``, against the reference's
+    ``reference_chain`` jitted, as its executor runs it off the TPU (what
+    tests/kernels/test_qblocks.py holds the Pallas kernel against; no
+    Pallas interpret mode, which can deadlock)."""
     x, blocks = _chain_case(2, True)
-    want = ref_qblocks.fused_qblockchain(jnp.asarray(x), blocks, interpret=True)
+    want = jax.jit(lambda v: ref_qblocks.reference_chain(v, blocks))(jnp.asarray(x))
     got = qblocks.fused_qblockchain(torch.as_tensor(x), _torch_blocks(blocks), plain=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 

@@ -8,11 +8,12 @@ downsample is computed by exactly one CTA, and every c1 value a cluster's
 overall); shared memory fits and clusters stay within 16 CTAs (8 unless
 asked). Every chain the previous kernel's ``covers`` took is still taken.
 ``prepare_w2`` gives the original weights, and the plain chain on prepared
-weights equals the reference's ``reference_chain`` and its Pallas kernel in
-interpret mode (``tf2_tpu/kernels/qblocks.py:266`` and ``:282``, as
-tests/test_torch_qblocks.py runs them). Tolerance 0. The kernel itself is
+weights equals the reference's ``reference_chain`` (``tf2_tpu/kernels/
+qblocks.py:282``, what tests/kernels/test_qblocks.py holds its Pallas
+kernel against), eager and jitted; no Pallas interpret mode. Tolerance 0. The kernel itself is
 held against the plain chain on the card in tests/test_torch_cuda.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -195,9 +196,9 @@ def test_plain_chain_on_prepared_weights_matches_reference(nblocks, down, cm):
                for b in prepared)
     got = qblocks.qblockchain(torch.as_tensor(x), prepared)
     np.testing.assert_array_equal(got.numpy(), want)
-    if cm == 8:
-        pallas = ref_qblocks.fused_qblockchain(jnp.asarray(x), blocks, interpret=True)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+    if cm == 8:  # and jitted, as the reference's executor runs it off the TPU
+        jitted = jax.jit(lambda v: ref_qblocks.reference_chain(v, blocks))(jnp.asarray(x))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jitted))
 
 
 def test_engine_holds_chain_weights_prepared():

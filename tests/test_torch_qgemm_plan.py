@@ -6,9 +6,10 @@ the tiles cover the output exactly once, the splits cover K exactly once,
 the workspace and shared memory are what the kernel
 (``csrc/qmm_int8.cuh``) takes, and the copy widths follow the alignment;
 ``prepare_weight`` gives the transposed original, and the plain version on
-prepared weights equals the reference's ``qmatmul_int8``
-(``tf2_tpu/kernels/shift_matmul.py:123``, in interpret mode, as
-tests/test_torch_kernels.py runs it). Tolerance 0. The kernel itself is
+prepared weights equals the reference's non-Pallas int8 GEMM (the int32
+``jnp.dot`` and epilogue tests/kernels/test_shift_matmul.py holds
+``qmatmul_int8``, ``tf2_tpu/kernels/shift_matmul.py:123``, against; no
+Pallas interpret mode). Tolerance 0. The kernel itself is
 held against the plain version on the card in tests/test_torch_cuda.py.
 """
 import functools
@@ -18,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from tf2_tpu.kernels import shift_matmul as ref_shift_matmul
 from tf2_tpu_torch.kernels import dispatch, shift_matmul
 
 SMS = 132
@@ -31,6 +31,16 @@ ZOO_B64.append((64, 768, 1000))
 RAGGED = [(1, 48, 16), (100, 64, 130), (130, 48, 200), (300, 200, 130), (33, 196, 99),
           (33, 50, 20), (16, 64, 8464), (2048, 192, 1024), (4096, 256, 1024),
           (7, 3, 5), (129, 1000, 1)]
+
+
+def _ref_qmm(x_q, w_q, es, eb, relu):
+    """tests/kernels/test_shift_matmul.py's reference: int32 dot + epilogue."""
+    acc = jnp.dot(jnp.asarray(x_q, jnp.int32), jnp.asarray(w_q, jnp.int32),
+                  preferred_element_type=jnp.int32)
+    y = acc.astype(jnp.float32) * jnp.asarray(es)[None, :] + jnp.asarray(eb)[None, :]
+    if relu:
+        y = jnp.maximum(y, 0.0)
+    return np.asarray(jnp.clip(jnp.round(y), -127, 127).astype(jnp.int8))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -183,8 +193,7 @@ def test_plain_on_prepared_weights_matches_reference(m, k, n, relu):
     w = rng.randint(-127, 128, (k, n)).astype(np.int8)
     es = rng.uniform(1e-4, 1e-3, n).astype(np.float32)
     eb = rng.randn(n).astype(np.float32)
-    want = ref_shift_matmul.qmatmul_int8(*map(jnp.asarray, (x, w, es, eb)), relu=relu,
-                                         interpret=True)
+    want = _ref_qmm(x, w, es, eb, relu)
     wp = shift_matmul.prepare_weight(torch.as_tensor(w))
     got = shift_matmul.qmatmul_int8(torch.as_tensor(x), wp, torch.as_tensor(es),
                                     torch.as_tensor(eb), relu=relu)

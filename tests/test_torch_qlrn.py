@@ -4,8 +4,10 @@
 rounded step by step; tf2_tpu sums the window as an f32 band matmul and
 takes ``rsqrt``. They are held to the reference kernel test's own bar
 (tests/kernels/test_qlrn.py: max |diff| <= 1, more than 99.9% of elements
-exact) against the jitted ``reference_qlrn`` and the Pallas kernel in
-interpret mode. The ``fuse_lrn_quantize`` pass must emit the reference's
+exact) against the reference's non-Pallas ``reference_qlrn``, jitted and op
+by op (the ``against`` parameter keeps its old value ``pallas_interpret``
+for the second; no test enters Pallas interpret mode, which can
+deadlock). The ``fuse_lrn_quantize`` pass must emit the reference's
 graph JSON; ``qconcat`` must equal the reference's with tolerance 0. The
 kernel itself is held against ``qlrn_plain`` on the card in
 tests/test_torch_cuda.py."""
@@ -22,7 +24,6 @@ from tf2_tpu.graph.ir import GraphBuilder as RefGraphBuilder
 from tf2_tpu.graph.ir import Node as RefNode
 from tf2_tpu.graph.optimize import fuse_lrn_quantize as ref_fuse_lrn_quantize
 from tf2_tpu.kernels import dispatch as ref_dispatch
-from tf2_tpu.kernels.qlrn import fused_qlrn as ref_fused_qlrn
 from tf2_tpu.kernels.qlrn import reference_qlrn
 from tf2_tpu_torch import kernels
 from tf2_tpu_torch.graph import Graph, GraphBuilder, Node, execute
@@ -64,8 +65,8 @@ def test_plain_qlrn_matches_reference(shape, radius, beta, against):
     kw = dict(KW, radius=radius, beta=beta)
     if against == "reference_qlrn":
         want = jax.jit(functools.partial(reference_qlrn, **kw))(jnp.asarray(x))
-    else:
-        want = ref_fused_qlrn(jnp.asarray(x), interpret=True, **kw)
+    else:  # reference_qlrn op by op, what tests/kernels/test_qlrn.py holds the Pallas kernel to
+        want = reference_qlrn(jnp.asarray(x), **kw)
     kernels.reset_launch_counts()
     got = qlrn.qlrn(torch.as_tensor(x), **kw)
     assert kernels.launch_counts()["qlrn"] == 0  # the CPU takes the plain version

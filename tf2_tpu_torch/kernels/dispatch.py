@@ -12,7 +12,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import build, qattention, qblocks, qconv, qlrn as qlrn_kernel, shift_matmul
+from . import build, qattention, qblocks, qconv, qlrn as qlrn_kernel, qstem, shift_matmul
 
 
 def quantize(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -54,12 +54,20 @@ def qconv2d(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tenso
         return _qconv_wpack2(node, params, x_q, plain)
     if node.attrs.get("wfmt") not in ("pot4", "int8"):
         raise NotImplementedError(f"weight format {node.attrs.get('wfmt')!r} is not ported")
-    if "s_in" in node.attrs:
-        # input quantize fused into the stem (graph/optimize.fuse_stem_quantize)
-        x_q = quantize(x_q, node.attrs["s_in"])
     padding = node.attrs.get("padding", "SAME")
     if not isinstance(padding, str):
         padding = [tuple(p) for p in padding]
+    if "s_in" in node.attrs:
+        # input quantize fused into the stem (graph/optimize.fuse_stem_quantize).
+        # A stem the Engine routed to the stem kernel at load (Engine.stem_plan)
+        # holds its weight in that kernel's layout (prepare_weights): the
+        # kernel quantizes the image itself
+        w = params[node.params[0]]
+        if not plain and qstem.prepared_ld(w) is not None:
+            return qstem.fused_qstem(x_q, w, params[node.params[1]], params[node.params[2]],
+                                     padding=padding, relu=node.attrs["relu"],
+                                     scale=node.attrs["s_in"])
+        x_q = quantize(x_q, node.attrs["s_in"])
     return qconv.fused_qconv2d(
         x_q, params[node.params[0]], params[node.params[1]], params[node.params[2]],
         strides=tuple(node.attrs.get("strides", [1, 1])), padding=padding,
@@ -198,14 +206,19 @@ def runs_gemm(node, wfmt: str) -> bool:
             and tuple(a["kshape"][:2]) + tuple(a.get("strides", (1, 1))) == (1, 1, 1, 1))
 
 
-def prepare_weights(graph, params) -> dict:
+def prepare_weights(graph, params, stem_nodes=frozenset()) -> dict:
     """The params with every weight the GEMMs and the chain kernel read
     replaced, once, by its K-major copy (``shift_matmul.prepare_weight``:
     the int8 GEMM's W^T rows and the pot4 GEMM's packed code rows;
-    ``qblocks.prepare_w2``), seen through a view of the param's own shape:
-    one copy of each weight, which the kernels read without preparing it
-    and the plain versions read as the reference's layout."""
+    ``qblocks.prepare_w2``), and the weight of each stem node named in
+    ``stem_nodes`` by the stem kernel's rows (``qstem.prepare_weight``),
+    each seen through a view of the param's own shape: one copy of each
+    weight, which the kernels read without preparing it and the plain
+    versions read as the reference's layout."""
     out = dict(params)
+    for node in graph.nodes:
+        if node.name in stem_nodes:
+            out[node.params[0]] = qstem.prepare_weight(out[node.params[0]])
     names = set()
     for node in graph.nodes:
         if runs_gemm(node, "int8") or runs_gemm(node, "pot4"):

@@ -19,7 +19,7 @@ from ..graph.optimize import (fuse_bottleneck_chains, fuse_lrn_quantize,
                               fuse_stem_quantize, hoist_input_quantize,
                               merge_sibling_1x1, pack_phase_stem, space_to_depth_stem)
 from ..graph.shapes import activation_shapes
-from ..kernels import dispatch, qattention, qblocks, qconv, qlrn
+from ..kernels import dispatch, qattention, qblocks, qconv, qlrn, qstem
 from ..transform import potq
 
 
@@ -157,11 +157,15 @@ class Engine:
 
     On the card the load ends with the coverage plan (``Engine.plan``): the
     nodes no kernel takes, ``plain_nodes``, run their plain versions there,
-    as the reference runs them in XLA. On the CPU every node is plain and
-    ``plain_nodes`` is empty. On every device the weights of the int8 GEMMs
-    and of the chains are then stored K-major, as those kernels read them
-    (``dispatch.prepare_weights``), each once, seen through a view of its
-    own shape.
+    as the reference runs them in XLA; and with the stem plan
+    (``Engine.stem_plan``): the fused stems, ``stem_nodes``, that run on the
+    stem kernel (``kernels/qstem.py``), which quantizes the f32 image
+    itself, as the reference's stem fusion does; a stem it does not take
+    keeps the eager quantize and the stride-2 conv kernel. On the CPU every
+    node is plain and both sets are empty. On every device the weights of
+    the int8 GEMMs, of the chains and of the routed stems are then stored
+    as those kernels read them (``dispatch.prepare_weights``), each once,
+    seen through a view of its own shape.
     """
 
     def __init__(self, graph: Graph, params: Mapping[str, np.ndarray],
@@ -183,10 +187,13 @@ class Engine:
         if optimize:
             graph, params = _space_to_depth(graph, params)
         self.graph = graph
-        self.plain_nodes = (self.plan(graph, params, Limits.of_card())
-                            if self.device.type == "cuda" else frozenset())
+        on_card = self.device.type == "cuda"
+        self.plain_nodes = self.plan(graph, params, Limits.of_card()) if on_card else frozenset()
+        self.stem_nodes = (self.stem_plan(graph, params, Limits.of_card()) if on_card
+                           else frozenset())
         self.params = dispatch.prepare_weights(
-            graph, {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in params.items()})
+            graph, {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in params.items()},
+            self.stem_nodes)
         self._fn = execute(graph, plain_nodes=self.plain_nodes)
 
     @staticmethod
@@ -218,6 +225,22 @@ class Engine:
             if not takes:
                 rejected.add(n.name)
         return frozenset(rejected)
+
+    @staticmethod
+    def stem_plan(graph: Graph, params, limits: Limits) -> frozenset[str]:
+        """The names of the fused stems (``qconv2d`` nodes with ``s_in``
+        and int8 weights: the node ``fuse_stem_quantize`` leaves) that run
+        on the stem kernel: those ``qstem.routes`` takes on the shapes
+        ``activation_shapes`` gives, with the card's shared memory
+        (``limits``). Made at load; a stem outside it keeps the quantize and
+        the stride-2 conv kernel."""
+        shapes = activation_shapes(graph, params)
+        return frozenset(
+            n.name for n in graph.nodes
+            if n.op == "qconv2d" and "s_in" in n.attrs and n.attrs.get("wfmt") == "int8"
+            and qstem.routes(tuple(n.attrs["kshape"]), tuple(n.attrs.get("strides", (1, 1))),
+                             n.attrs.get("padding", "SAME"), n.attrs.get("groups", 1),
+                             tuple(shapes[n.inputs[0]]), limits.smem_per_block))
 
     def _inputs(self, inputs) -> dict[str, torch.Tensor]:
         if not inputs:
