@@ -10,8 +10,10 @@ Phases, in order; any failure exits non-zero before the last line:
              through the port's transform (init_params(seed=0), BN fold,
              W4-PoT quantize, synthetic activation scales), saved and
              loaded back as an artifact; Engines at batch 64 and 1 and on
-             the CPU at batch 1: default, block_fusion=True,
-             phase_stem=True and optimize=True.
+             the CPU at batch 1: block_fusion=False, the default (its
+             bottleneck chains fused), phase_stem=True and optimize=True
+             (both unfused). Each Engine follows the committed routing
+             table (phase 17).
  4. kernels  each of the conv/GEMM kernels against its plain version
              on the card with 0 mismatches: every conv/dense node of the path
              at batch 64 and 1 on its real input, the same shapes with relu
@@ -32,14 +34,15 @@ Phases, in order; any failure exits non-zero before the last line:
              its plain version and a library yardstick (torch._int_mm for
              the GEMMs, bf16 F.conv2d for the convs) with CUDA events at
              the batch-64 shapes.
- 5. main     Engine.run at batch 64 and 1 with launch counts per forward
-             (33 / 1 / 13 / 6 / 0 / 0 / 0 / 0 / 1: the stem on qstem), no
+ 5. unfused  Engine(block_fusion=False).run at batch 64 and 1 with launch
+             counts per forward (33 / 1 / 13 / 6 / 0 / 0 / 0 / 0 / 1: the
+             stem on qstem; moved by the routes), no
              weight prepared on the forward (every Engine here: the int8
              GEMMs', chains' and stems' weights are in their kernels'
              layouts from the load), finite (B, 1000) logits,
              every node equal to the plain path on the card and, at batch 1,
              to the Engine on the CPU; Engine.benchmark img/s and latency.
- 6. chains   Engine(block_fusion=True) at batch 64 and 1 from the same
+ 6. chains   the default Engine (block_fusion) at batch 64 and 1 from the same
              artifact: every conv and dense node (the six pot4 GEMMs
              between the chains) as in phase 4, untimed; every qblockchain
              node against the plain chain with
@@ -51,8 +54,9 @@ Phases, in order; any failure exits non-zero before the last line:
              bands, ragged channels), relu on and off and +-127; the plans
              taken printed, every kind required; each chain timed at batch
              64 (kernel, plain, bound) and its kernel at batch 1.
- 7. fused    Engine(block_fusion=True).run at batch 64 and 1: launch counts
-             per forward (6 / 1 / 0 / 6 / 4 / 0 / 0 / 0 / 1), every node
+ 7. fused    the default Engine's run at batch 64 and 1, the main path:
+             launch counts per forward (6 / 1 / 0 / 6 / 4 / 0 / 0 / 0 / 1,
+             moved by its routes: routed_launches), every node
              equal to the plain path and, at batch 1, to the fused Engine on
              the CPU; logits equal to phase 5's bit for bit;
              Engine.benchmark beside it.
@@ -122,7 +126,11 @@ Phases, in order; any failure exits non-zero before the last line:
              stride-(2, 1) conv timed at ResNet-50's b64 stem into the
              kernels line. Then the ragged stems (RAGGED_STEMS: k 1-7, odd
              H and W, cin 1-4, cout 8-256, VALID and SAME, the copy tails),
-             prepared and not, and ragged packed convs.
+             prepared and not, and ragged packed convs. Then the stems the
+             kernel's plan has no launch for (k 9, cout 288): fused_qstem
+             on the quantize and the stride-2 conv kernel (counted in
+             qstem.TWO_PASS) and an Engine whose stem stays outside its
+             stem plan, equal to qstem_plain, eager and built.
 13. ssd      full-width SSD (256x256, 21 classes, 1,008 priors, W4-PoT)
              under both score cases (random and background-dominated,
              tf2_tpu_torch/bench/ssd_cases.py): the artifact round trip,
@@ -148,14 +156,38 @@ Phases, in order; any failure exits non-zero before the last line:
              the nodes no kernel takes, those nodes run plain on the card,
              the others on their kernels, every node equal to
              Engine(device="cpu").
+16. captured after each path's eager phases, ResNet-50 (default,
+             block_fusion=True, phase_stem=True), GoogLeNet, SqueezeNet and
+             vit_b16 at batch 64 and 1: Engine.build (one eager forward,
+             then one CUDA graph of the whole forward) must launch twice a
+             forward's kernels (the wrappers count at capture); three
+             replays on three seeded inputs equal the eager forward bit for
+             bit and launch nothing through a wrapper; Engine.benchmark of
+             the captured forward beside the eager one. ResNet-50's
+             Engine(donate_inputs=True), built, equals the others, each
+             donated input freed. SSD's build raises its reason (its NMS
+             waits on the host).
+17. routing  for each zoo CNN at batch 64 and 1: the committed routing
+             table (tf2_tpu_torch/kernels/routing_defaults/) is the one
+             loaded; the default Engine (routed by it) equals
+             set_use_kernels(True)'s bit for bit, its routed nodes equal to
+             their plain versions; Engines with every node that has the
+             route on kernel_int8 and on library each equal the plain path
+             node by node and set_use_kernels(True)'s logits.
+18. headline the headline bench's line (tf2_tpu_torch/bench/headline.py)
+             from phase 16's built ResNet-50 Engines.
 Every zoo Engine on the card (phases 3-14) must have empty plain_nodes:
 the coverage plan sends none of the zoo's nodes to a plain version.
 Launch counts are in the order (qmatmul_pot4, qmatmul_int8, qconv_s1,
 qconv_s2, qblockchain, qlrn, qattention, qconv_s2x1, qstem). Prints the
-summary line (every path's numbers, the stem routes, the run's wall time),
-the kernels JSON line (launches: qblockchain's from phase 7, qconv_s2x1's
-from phase 11's phase_stem Engine, qlrn's from phase 8,
-qattention's from phase 10, the others' from phase 5; times at ResNet-50's
+headline bench's line, the summary line (every path's numbers, the stem
+routes, the captured forwards, the routes, the run's wall time),
+the kernels JSON line (launches from the Engine each kernel was timed on:
+the conv and GEMM kernels' from phase 5's unfused Engine, which runs every
+conv (the default's chains take the 3x3s and most GEMMs, phase 7),
+qblockchain's from phase 7, qconv_s2x1's from phase 11's phase_stem
+Engine, qlrn's from phase 8, qattention's from phase 10, each entry's
+launches_from naming the Engine; times at ResNet-50's
 shapes, qlrn's at GoogLeNet's, qattention's at vit_b16's), the card line
 and, last, the contract line; the per-shape timings go to stderr as one
 JSON line.
@@ -206,8 +238,11 @@ EXPECTED_LAUNCHES = _launches(33, 1, 13, 6, 0, 0, 0, 0, 1)
 FUSED_LAUNCHES = _launches(6, 1, 0, 6, 4, 0, 0, 0, 1)
 STEM_LAUNCHES = {"phase_stem": _launches(33, 1, 13, 6, 0, 0, 0, 1, 0),
                  "optimize": _launches(33, 1, 14, 6, 0, 0, 0, 0, 0)}
-RESNET_OPTIONS = {"default": {}, "block_fusion": {"block_fusion": True},
-                  "phase_stem": {"phase_stem": True}, "optimize": {"optimize": True}}
+# the default Engine fuses the bottleneck chains (block_fusion, on by
+# default since the card measured it); the others run every block's convs
+RESNET_OPTIONS = {"unfused": {"block_fusion": False}, "default": {},
+                  "phase_stem": {"phase_stem": True, "block_fusion": False},
+                  "optimize": {"optimize": True, "block_fusion": False}}
 ZOO_OPTIONS = {"default": {}, "merge_1x1": {"merge_1x1": True}}
 ZOO_LAUNCHES = {  # model -> {option: launches}
     "googlenet": {"default": _launches(37, 1, 19, 0, 0, 2, 0, 0, 1),
@@ -349,13 +384,14 @@ def make_engines(graph, params, options, batches=(64, 1)):
 
 def phase_artifact(name: str, options, **kwargs):
     """The model's artifact round trip and its Engines for each of
-    ``options``. -> (engines[label][batch], cpu_engines[label])."""
+    ``options``. -> (engines[label][batch], cpu_engines[label], (graph,
+    params))."""
     t = time.time()
     graph, params, mb = load_round_trip(name, **kwargs)
     engines, cpu_engines = make_engines(graph, params, options)
     log(f"artifact {name}: {len(params)} tensors, {mb:.1f} MB, "
         f"transform + save + load + engines {time.time() - t:.1f} s")
-    return engines, cpu_engines
+    return engines, cpu_engines, (graph, params)
 
 
 def _conv_node(node):
@@ -1160,11 +1196,34 @@ def phase_chains(engines, images, stats):
     return plain_envs
 
 
+def routed_launches(eng, expected, graph):
+    """``expected`` (a forward's launches with every node on ``kernel``)
+    moved by the routes the Engine resolved at load: a GEMM node on
+    ``kernel_int8`` launches the int8 GEMM in place of the pot4 one, a node
+    on ``library`` no kernel; a k x k conv on ``kernel_int8`` stays on its
+    conv kernel. ``graph``: the artifact's, which names each node's
+    weight format before the decode."""
+    from tf2_tpu_torch.kernels import dispatch
+
+    if not eng.routes:
+        return expected
+    if graph is None:
+        raise RuntimeError(f"{eng.graph.name}: routed nodes {sorted(eng.routes)} and no graph")
+    out, src, final = dict(expected), graph.node_map(), eng.graph.node_map()
+    for name, route in eng.routes.items():
+        if dispatch.runs_gemm(final[name], "int8"):
+            out["qmatmul_" + src[name].attrs["wfmt"]] -= 1
+            if route == "kernel_int8":
+                out["qmatmul_int8"] += 1
+    return out
+
+
 def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as=None,
-               out_shape=(1000,)):
+               out_shape=(1000,), graph=None):
     """A path through Engine.run: launch counts per forward must equal
-    ``expected``; returns (launches per b64 forward, summary, outputs by
-    batch). The outputs must be finite, (B, *out_shape). At batch 1 every
+    ``expected`` as the Engine's routes move it (``routed_launches``, on the
+    artifact's ``graph``); returns (launches per b64 forward, summary,
+    outputs by batch). The outputs must be finite, (B, *out_shape). At batch 1 every
     node and the outputs must also equal the Engine on the CPU, whose plain
     path the CPU tests hold against tf2_tpu; with ``same_as`` the outputs
     must equal those bit for bit."""
@@ -1176,9 +1235,10 @@ def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as
         kernels.reset_launch_counts()
         logits = eng.run(image=images[b])
         counts = kernels.launch_counts()
-        if counts != expected:
-            raise RuntimeError(f"{label} b{b}: launches per forward {counts}, "
-                               f"expected {expected}")
+        want = routed_launches(eng, expected, graph)
+        if counts != want:
+            raise RuntimeError(f"{label} b{b}: launches per forward {counts}, expected {want} "
+                               f"(routes {eng.routes})")
         if any(kernels.prepared_per_call().values()):
             raise RuntimeError(f"{label} b{b}: weights prepared on a forward: "
                                f"{kernels.prepared_per_call()}")
@@ -1191,8 +1251,8 @@ def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as
                                f"not finite (B, {out_shape})")
         if same_as is not None and not torch.equal(logits, same_as[b]):
             raise RuntimeError(f"{label} b{b}: logits differ from the default Engine's")
-        _, env = execute(eng.graph, intermediates=True, plain_nodes=eng.plain_nodes)(
-            eng.params, image=images[b])
+        _, env = execute(eng.graph, intermediates=True, plain_nodes=eng.plain_nodes,
+                         library_nodes=eng.library_nodes)(eng.params, image=images[b])
         differ = [n.name for n in eng.graph.nodes
                   if not torch.equal(env[n.name], plain_envs[b][n.name])]
         if differ or not torch.equal(logits, plain_envs[b][eng.graph.outputs[0]]):
@@ -1212,7 +1272,7 @@ def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as
         summary[f"b{b}"] = {"img_per_s": bench["throughput_per_s"],
                             "latency_ms": bench["latency_s"] * 1e3,
                             "per_rep_ms": [t * 1e3 for t in bench["per_rep_s"]],
-                            "nodes_checked": len(eng.graph.nodes),
+                            "nodes_checked": len(eng.graph.nodes), "routes": eng.routes,
                             "logits_absmax": float(logits.abs().max())}
         log(f"{label} b{b}: {counts}, {len(eng.graph.nodes)} nodes equal the plain path, "
             f"{bench['throughput_per_s']:.1f} img/s, {bench['latency_s'] * 1e3:.3f} ms/forward")
@@ -1225,20 +1285,25 @@ def phase_zoo(name, images, stats):
     plain version (untimed: the kernels line times them on ResNet-50's
     path); GoogLeNet's qlrn nodes (phase_qlrn); the stem routes
     (phase_stems); both Engines through phase_main, the merged logits
-    equal to the default's bit for bit. Returns (launches per b64 forward
-    of the default Engine, summary)."""
-    engines, cpu_engines = phase_artifact(name, ZOO_OPTIONS)
+    equal to the default's bit for bit; the default Engines captured
+    (phase_captured) and the routes (phase_routing). Returns (launches per
+    b64 forward of the default Engine, summary)."""
+    engines, cpu_engines, art = phase_artifact(name, ZOO_OPTIONS)
     envs = phase_kernels(engines["default"], images, stats, timed=False)
     if any(n.op == "qlrn" for n in engines["default"][64].graph.nodes):
         phase_qlrn(engines["default"], envs, stats)
     routes = phase_stems(name, engines["default"], cpu_engines["default"], images, stats)
     launches, summary, logits = phase_main(name, engines["default"], cpu_engines["default"],
-                                           images, envs, ZOO_LAUNCHES[name]["default"])
+                                           images, envs, ZOO_LAUNCHES[name]["default"],
+                                           graph=art[0])
     summary["stem_routes"] = routes
     merged_envs = phase_kernels(engines["merge_1x1"], images, stats, timed=False)
     _, summary["merge_1x1"], _ = phase_main(f"{name} merge_1x1", engines["merge_1x1"],
                                             cpu_engines["merge_1x1"], images, merged_envs,
-                                            ZOO_LAUNCHES[name]["merge_1x1"], same_as=logits)
+                                            ZOO_LAUNCHES[name]["merge_1x1"], same_as=logits,
+                                            graph=art[0])
+    summary["captured"] = phase_captured(name, engines["default"], summary, seed=len(name))
+    summary["routing"] = phase_routing(name, *art, engines["default"], images)
     log(f"{name}: kernels " + ", ".join(f"{k} {v['checks']} checks" for k, v in stats.k.items()))
     return launches, summary
 
@@ -1350,6 +1415,8 @@ def phase_vit(name, images, stats):
     envs = phase_kernels(engines, images, stats, timed=timed, total=False)
     phase_qattention(engines, envs, stats, timed)
     launches, summary, _ = phase_main(name, engines, cpu_engine, images, envs, VIT_LAUNCHES)
+    if name == "vit_b16":
+        summary["captured"] = phase_captured(name, engines, summary, seed=19)
     log(f"{name}: kernels " + ", ".join(f"{k} {v['checks']} checks" for k, v in stats.k.items()))
     return launches, summary
 
@@ -1743,62 +1810,321 @@ def phase_ssd(stats):
                                             cpu_engines["default"], images, envs, SSD_LAUNCHES,
                                             out_shape=(100, 6))
         summary[case]["kept_per_image_b64"] = float((dets[64][..., 4] > 0).sum()) / 64
+        if case == CASES[0]:  # phase 16: a forward that waits on the host is not captured
+            try:
+                engines["default"][1].build()
+            except RuntimeError as e:
+                if "waits on the host" not in str(e) or engines["default"][1].built:
+                    raise
+                summary["build_refused"] = str(e)
+                log(f"ssd: build refused: {e}")
+            else:
+                raise RuntimeError("ssd: build captured a forward that waits on the host")
         log(f"ssd {case}: {summary[case]['kept_per_image_b64']:.2f} detections an image kept")
     return summary
+
+
+def phase_captured(label, engines, eager, seed: int):
+    """Phase 16 for one path, after its eager phases: on each Engine (by
+    batch), three seeded inputs through the eager forward (its launches,
+    which phase_main checked, counted); then ``Engine.build``: its warm-up
+    forward and its capture must launch twice those (the wrappers count at
+    capture, not at replay); then three
+    replays on those inputs must equal the eager outputs bit for bit and
+    launch nothing through a wrapper, and prepare no weight. The captured
+    forward timed by ``Engine.benchmark`` beside the eager one (``eager``:
+    phase_main's summary). Leaves the Engines built. Returns the summary."""
+    from tf2_tpu_torch import kernels
+
+    rng = np.random.default_rng(seed)
+    summary = {}
+    for b, eng in engines.items():
+        shape = tuple(eng.graph.inputs["image"].shape)
+        xs = [torch.as_tensor(rng.standard_normal(shape, dtype=np.float32)).cuda()
+              for _ in range(3)]
+        kernels.reset_launch_counts()
+        want = [eng.run(image=xs[0])]
+        expected = kernels.launch_counts()
+        want += [eng.run(image=x) for x in xs[1:]]
+        kernels.reset_launch_counts()
+        t = time.time()
+        eng.build(image=xs[0])
+        torch.cuda.synchronize()
+        build_s = time.time() - t
+        counts = kernels.launch_counts()
+        if counts != {k: 2 * v for k, v in expected.items()}:
+            raise RuntimeError(f"{label} b{b}: build launched {counts}, expected twice "
+                               f"{expected} (warm-up and capture)")
+        kernels.reset_launch_counts()
+        got = [eng.run(image=x) for x in xs]
+        if any(kernels.launch_counts().values()) or any(kernels.prepared_per_call().values()):
+            raise RuntimeError(f"{label} b{b}: a replay went through a wrapper: "
+                               f"{kernels.launch_counts()}")
+        if not eng.built or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(f"{label} b{b}: the captured forward differs from the eager one")
+        r = eng.benchmark(iters=20 if b == 64 else 100, reps=3, image=xs[0])
+        summary[f"b{b}"] = {"captured_ms": r["latency_s"] * 1e3,
+                            "captured_img_per_s": r["throughput_per_s"],
+                            "captured_per_rep_ms": [t * 1e3 for t in r["per_rep_s"]],
+                            "eager_ms": eager[f"b{b}"]["latency_ms"], "build_s": build_s}
+        log(f"{label} b{b}: captured, 3 replays equal the eager forward; "
+            f"{r['latency_s'] * 1e3:.4f} ms/forward captured against "
+            f"{eager[f'b{b}']['latency_ms']:.4f} eager (build {build_s:.2f} s)")
+    return summary
+
+
+def phase_donation(graph, params, engines):
+    """Phase 16, ResNet-50: Engine(donate_inputs=True), built, at batch 64
+    and 1: outputs equal the built Engine's without donation on three
+    seeded inputs, each donated tensor's storage freed after its call."""
+    from tf2_tpu_torch.runtime import Engine
+
+    rng = np.random.default_rng(16)
+    for b, ref in engines.items():
+        shape = tuple(ref.graph.inputs["image"].shape)
+        xs = [torch.as_tensor(rng.standard_normal(shape, dtype=np.float32)).cuda()
+              for _ in range(3)]
+        want = [ref.run(image=x) for x in xs]
+        eng = Engine(graph.with_batch_size(b), params, donate_inputs=True).build(
+            image=xs[0].clone())
+        for x, w in zip(xs, want):
+            mine = x.clone()
+            if not torch.equal(eng.run(image=mine), w) or mine.untyped_storage().nbytes():
+                raise RuntimeError(f"donated Engine b{b}: outputs differ or the input was kept")
+        del eng
+    log("resnet50: the donated Engines equal the others at b64 and b1, inputs freed")
+
+
+def _forced_engine(graph, params, route):
+    """An Engine with every conv and dense node that has ``route`` on it:
+    ``kernel`` (``set_use_kernels(True)``), ``library``
+    (``set_use_kernels(False)``) or ``kernel_int8`` (a table sending every
+    such key there)."""
+    from tf2_tpu_torch.graph.shapes import activation_shapes
+    from tf2_tpu_torch.kernels import autotune, dispatch
+
+    if route != "kernel_int8":
+        dispatch.set_use_kernels(route == "kernel")
+        try:
+            return zoo_engine(graph, params)
+        finally:
+            dispatch.set_use_kernels(None)
+    shapes = activation_shapes(graph, params)
+    routes = {}
+    for n in graph.nodes:
+        a = n.attrs
+        if n.op == "qconv2d" and "kernel_int8" in dispatch.conv_choices(
+                a["kshape"], a.get("strides", [1, 1]), a.get("padding", "SAME"),
+                a.get("groups", 1), a["wfmt"]):
+            routes[autotune.conv_key(shapes[n.inputs[0]], a["kshape"], a.get("strides", [1, 1]),
+                                     a.get("groups", 1), a["wfmt"])] = route
+        elif n.op == "qdense" and a.get("wfmt") == "pot4" and len(n.inputs) == 1:
+            routes[autotune.dense_key(shapes[n.inputs[0]], a["kshape"], a["wfmt"])] = route
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/routing.json"
+        with open(path, "w") as f:
+            json.dump({"routes": routes, "detail": {}}, f)
+        autotune.set_table_path(path)
+        try:
+            return zoo_engine(graph, params)
+        finally:
+            autotune.set_table_path(None)
+
+
+def phase_routing(name, graph, params, engines, images):
+    """Phase 17 for one zoo CNN at batch 64 and 1: the committed routing
+    table (kernels/routing_defaults/, read where no tuned table exists) is
+    the one the Engines loaded; the default Engine (routed by it) equals
+    ``set_use_kernels(True)``'s bit for bit, its routed nodes equal to
+    their plain versions; and Engines with every node that has the route
+    on ``kernel_int8`` and on ``library`` each equal the plain path node
+    by node and ``set_use_kernels(True)``'s logits. Returns the summary."""
+    from tf2_tpu_torch.graph import execute
+    from tf2_tpu_torch.kernels import autotune
+
+    table = autotune._load()
+    source = autotune.table_path() if autotune._read_json(autotune.table_path())["routes"] \
+        else autotune.default_path()
+    if source == autotune.default_path() and table != autotune._read_json(source):
+        raise RuntimeError(f"routing: the loaded table is not the committed {source}")
+    summary = {"table": source, "table_routes": sum(v != "kernel" for v in table["routes"].values())}
+    for b, default in engines.items():
+        g = graph.with_batch_size(b)
+        want = _forced_engine(g, params, "kernel").run(image=images[b])
+        if not torch.equal(default.run(image=images[b]), want):
+            raise RuntimeError(f"{name} b{b}: the routed Engine differs from set_use_kernels(True)")
+        checked = {"default": len(default.routes)}
+        for route in ("kernel_int8", "library"):
+            eng = _forced_engine(g, params, route)
+            if not eng.routes or set(eng.routes.values()) != {route}:
+                raise RuntimeError(f"{name} b{b} {route}: routes {eng.routes}")
+            out, env = execute(eng.graph, intermediates=True, library_nodes=eng.library_nodes)(
+                eng.params, image=images[b])
+            _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params,
+                                                                         image=images[b])
+            differ = [n.name for n in eng.graph.nodes if not torch.equal(env[n.name],
+                                                                         plain[n.name])]
+            if differ or not torch.equal(out, want) or not torch.equal(eng.run(image=images[b]),
+                                                                       want):
+                raise RuntimeError(f"{name} b{b} {route}: nodes differ: {differ[:5]}")
+            checked[route] = len(eng.routes)
+            del eng
+        if default.routes:  # the committed table's routed nodes
+            _, env = execute(default.graph, intermediates=True,
+                             library_nodes=default.library_nodes)(default.params,
+                                                                  image=images[b])
+            _, plain = execute(default.graph, intermediates=True, plain=True)(
+                default.params, image=images[b])
+            if any(not torch.equal(env[k], plain[k]) for k in default.routes):
+                raise RuntimeError(f"{name} b{b}: a routed node differs from plain")
+        summary[f"b{b}"] = {"routed_nodes": checked}
+        log(f"{name} b{b}: routed Engine equals set_use_kernels(True); routed nodes "
+            f"{checked}, each equal to the plain path")
+    return summary
+
+
+def phase_wide_stems(stats, dev):
+    """Phase 12, the stems the stem kernel's plan has no launch for (k 9,
+    cout 288; coverage_cases.WIDE_STEMS): fused_qstem at 224x224 (b2, f32
+    and int8 images, relu on and off) on the quantize and the stride-2 conv
+    kernel (counted in qstem.TWO_PASS), equal to qstem_plain; and an Engine
+    (coverage_cases.stem_artifact) whose stem stays outside its stem plan,
+    its stem node equal to qstem_plain, eager and built."""
+    from tf2_tpu_torch import kernels
+    from tf2_tpu_torch.bench import coverage_cases
+    from tf2_tpu_torch.kernels import qstem
+    from tf2_tpu_torch.runtime import Engine
+
+    rng = np.random.default_rng(12)
+    before = qstem.TWO_PASS["qstem"]
+    calls = 0
+    for k, cout in coverage_cases.WIDE_STEMS:
+        w_q = torch.as_tensor(rng.integers(-127, 128, (k, k, 3, cout), dtype=np.int8)).to(dev)
+        es = torch.as_tensor((rng.uniform(0.5, 4.0, cout) / (127 * np.sqrt(k * k * 3)))
+                             .astype(np.float32)).to(dev)
+        eb = torch.as_tensor(rng.normal(0, 20, cout).astype(np.float32)).to(dev)
+        xf = torch.as_tensor(rng.standard_normal((2, 224, 224, 3), dtype=np.float32)).to(dev)
+        xq = torch.as_tensor(rng.integers(-128, 128, (2, 224, 224, 3), dtype=np.int8)).to(dev)
+        for relu, (xin, scale) in itertools.product((False, True), ((xf, 0.013), (xq, None))):
+            kw_ = dict(padding="SAME", relu=relu, scale=scale)
+            kernels.reset_launch_counts()
+            got = qstem.fused_qstem(xin, w_q, es, eb, **kw_)
+            if kernels.launch_counts()["qconv_s2"] != 1 or kernels.launch_counts()["qstem"]:
+                raise RuntimeError(f"wide stem k{k} cout {cout}: not on the two passes")
+            calls += 1
+            stats.check("qconv_s2", f"fused_qstem two passes k{k} -> {cout} {kw_}", got,
+                        qstem.fused_qstem(xin, w_q, es, eb, plain=True, **kw_))
+        art = coverage_cases.stem_artifact(k, cout, batch=2, image=64)
+        eng = Engine(art.graph, art.params)
+        stem = eng.graph.nodes[0]
+        if eng.stem_nodes or "s_in" not in stem.attrs:
+            raise RuntimeError(f"wide stem k{k} cout {cout}: stem plan {eng.stem_nodes}")
+        x = torch.as_tensor(rng.standard_normal((2, 64, 64, 3), dtype=np.float32)).to(dev)
+        from tf2_tpu_torch.graph import execute
+
+        _, env = execute(eng.graph, intermediates=True)(eng.params, image=x)
+        w, es_, eb_ = (eng.params[p] for p in stem.params)
+        want = qstem.qstem_plain(x, qstem.fold_weight(w), es_, eb_, kh=k, kw=k, padding="SAME",
+                                 relu=stem.attrs["relu"], scale=stem.attrs["s_in"])
+        stats.check("qconv_s2", f"wide stem Engine k{k} -> {cout}", env[stem.name], want)
+        logits = eng.run(image=x)
+        if not torch.equal(eng.build(image=x).run(image=x), logits):
+            raise RuntimeError(f"wide stem k{k} cout {cout}: captured differs from eager")
+    stats.raise_on_mismatch("the wide stems disagree with qstem_plain")
+    if qstem.TWO_PASS["qstem"] - before != calls:
+        raise RuntimeError("qstem.TWO_PASS miscounted")
+    log(f"wide stems {coverage_cases.WIDE_STEMS}: qstem.TWO_PASS {qstem.TWO_PASS['qstem']}, "
+        "each equal to qstem_plain, through fused_qstem and an Engine (eager and built)")
+    return {"two_pass_calls": qstem.TWO_PASS["qstem"]}
+
+
+def phase_headline(engines, art, x, smi: str) -> dict:
+    """Phase 18: the headline bench's line (tf2_tpu_torch/bench/headline.py)
+    from the built default ResNet-50 Engines of phase 16 at batch 64 and 1,
+    and each option the bench times (headline.OPTIONS) built here at 64;
+    three spaced Engine.benchmark calls each."""
+    from tf2_tpu_torch.bench import headline
+
+    graph, params = art
+    options = {k: zoo_engine(graph, params, **flags).build(image=x)
+               for k, flags in headline.OPTIONS.items()}
+    b64, b1, options = headline.measure(engines[64], engines[1], options, x, calls=3)
+    line = headline.result_line(b64, b1, smi, options)
+    log(f"headline: {json.dumps(line)}")
+    return line
 
 
 def main() -> int:
     t0 = time.time()
     smi = phase_card()
     phase_build()
-    engines, cpu_engines = phase_artifact("resnet50", RESNET_OPTIONS, depths=(3, 4, 6, 3))
+    engines, cpu_engines, art = phase_artifact("resnet50", RESNET_OPTIONS, depths=(3, 4, 6, 3))
     rng = np.random.default_rng(0)
     images = {b: torch.as_tensor(rng.standard_normal(
         (b, 224, 224, 3), dtype=np.float32)).cuda() for b in (64, 1)}
     stats = KernelStats()
-    plain_envs = phase_kernels(engines["default"], images, stats, timed=True)
+    plain_envs = phase_kernels(engines["unfused"], images, stats, timed=True)
     phase_ragged_kernels(stats, images[1].device)
-    launches, summary, logits = phase_main("resnet50", engines["default"],
-                                           cpu_engines["default"], images, plain_envs,
-                                           EXPECTED_LAUNCHES)
-    phase_kernels(engines["block_fusion"], images, stats, timed=False)
-    fused_envs = phase_chains(engines["block_fusion"], images, stats)
-    fused_launches, summary["block_fusion"], _ = phase_main(
-        "resnet50 block_fusion", engines["block_fusion"], cpu_engines["block_fusion"], images,
-        fused_envs, FUSED_LAUNCHES, same_as=logits)
-    launches["qblockchain"] = fused_launches["qblockchain"]
+    unfused_launches, unfused, logits = phase_main(
+        "resnet50 block_fusion=False", engines["unfused"], cpu_engines["unfused"], images,
+        plain_envs, EXPECTED_LAUNCHES, graph=art[0])
+    phase_kernels(engines["default"], images, stats, timed=False)
+    fused_envs = phase_chains(engines["default"], images, stats)
+    launches, summary, _ = phase_main("resnet50", engines["default"], cpu_engines["default"],
+                                      images, fused_envs, FUSED_LAUNCHES, same_as=logits,
+                                      graph=art[0])
+    summary["block_fusion=False"] = unfused
+    # each kernel's launches from the Engine its time comes from: the conv
+    # and GEMM kernels' from the unfused one (phase 4 times them there, where
+    # they run every conv), the chains' from the default
+    launches_from = dict.fromkeys(launches, "resnet50 block_fusion=False b64")
+    launches = dict(unfused_launches, qblockchain=launches["qblockchain"])
+    launches_from["qblockchain"] = "resnet50 default b64"
     for option in ("phase_stem", "optimize"):
         envs = phase_kernels(engines[option], images, stats, timed=False)
         option_launches, summary[option], _ = phase_main(
             f"resnet50 {option}", engines[option], cpu_engines[option], images, envs,
-            STEM_LAUNCHES[option], same_as=logits)
+            STEM_LAUNCHES[option], same_as=logits, graph=art[0])
         if option == "phase_stem":
             launches["qconv_s2x1"] = option_launches["qconv_s2x1"]
+            launches_from["qconv_s2x1"] = "resnet50 phase_stem=True block_fusion=False b64"
     summary["stem_routes"] = phase_stems(
-        "resnet50", engines["default"], cpu_engines["default"], images, stats, timed=True)
+        "resnet50", engines["unfused"], cpu_engines["unfused"], images, stats, timed=True)
     phase_ragged_stems(stats, images[1].device)
-    del engines, cpu_engines, plain_envs, fused_envs, envs
+    summary["wide_stems"] = phase_wide_stems(stats, images[1].device)
+    summary["captured"] = {
+        "default": phase_captured("resnet50", engines["default"], summary, seed=16),
+        "block_fusion=False": phase_captured("resnet50 block_fusion=False", engines["unfused"],
+                                             unfused, seed=17)}
+    phase_donation(*art, engines["default"])
+    summary["routing"] = phase_routing("resnet50", *art, engines["default"], images)
+    headline_line = phase_headline(engines["default"], art, images[64], smi)
+    del engines, cpu_engines, plain_envs, fused_envs, envs, art
     zoo = {}
     for name in ZOO_LAUNCHES:
         zoo_launches, zoo[name] = phase_zoo(name, images, stats)
         if name == "googlenet":
-            launches["qlrn"] = zoo_launches["qlrn"]
+            launches["qlrn"], launches_from["qlrn"] = zoo_launches["qlrn"], "googlenet b64"
     for name in ("vit_b16", "vit_b16_cls"):
         vit_launches, zoo[name] = phase_vit(name, images, stats)
         if name == "vit_b16":
-            launches["qattention"] = vit_launches["qattention"]
+            launches["qattention"], launches_from["qattention"] = (vit_launches["qattention"],
+                                                                   "vit_b16 b64")
     check_gemm_variants(stats)
     check_pot4_variants(stats)
     zoo["qlrn_exact_path"] = {"elements": stats.qlrn_exact[1], "exact": stats.qlrn_exact[0]}
     zoo["ssd"] = phase_ssd(stats)
     zoo["vit_b16_cls_384"] = phase_vit384(stats)
     zoo["coverage"] = phase_coverage()
+    if not all(launches.values()):
+        raise RuntimeError(f"kernels launched no time on their paths: {launches}")
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         s = stats.k[name]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": s["max_abs_err"],
+            "launches": launches[name], "launches_from": launches_from[name],
+            "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes" if s["bytes_bound_ms"] * 2 >= s["bound_ms"] else "operations",
             "library_ms": s["library_ms"]})
@@ -1806,6 +2132,7 @@ def main() -> int:
                     "per_shape_b64": stats.rows}))
     wall_s = time.time() - t0
     log(f"wall time {wall_s:.1f} s")
+    print(json.dumps(headline_line))
     print(json.dumps({"main_path": summary, **zoo, "card": smi, "wall_s": wall_s}))
     print(json.dumps(line))
     print(smi)

@@ -193,7 +193,7 @@ def test_plan_asks_the_card_limits():
     assert len(chains) == 4
     assert _plan(res, block_fusion=True) == frozenset()
     assert _plan(res, Limits(CARD.qlrn_channels, 0), block_fusion=True) == set(chains)
-    assert _plan(res, Limits(CARD.qlrn_channels, 0)) == frozenset()  # no chains unfused
+    assert _plan(res, Limits(CARD.qlrn_channels, 0), block_fusion=False) == frozenset()
 
 
 def test_execute_runs_plain_nodes_plain(monkeypatch):

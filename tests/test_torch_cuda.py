@@ -133,7 +133,7 @@ def test_engine_every_node_equals_plain(cuda):
     art = synthetic_quantized("resnet50", seed=0, batch=2, image=64,
                               depths=(1, 1, 1, 1), classes=64)
     x = np.random.default_rng(0).standard_normal((2, 64, 64, 3)).astype(np.float32)
-    eng = Engine(art.graph, art.params)
+    eng = Engine(art.graph, art.params, block_fusion=False)
     kernels.reset_launch_counts()
     logits = eng.run(image=x)
     assert kernels.launch_counts() == {"qmatmul_pot4": 9, "qmatmul_int8": 1,
@@ -147,7 +147,7 @@ def test_engine_every_node_equals_plain(cuda):
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
     for n in eng.graph.nodes:
         assert torch.equal(env[n.name], plain[n.name]), n.name
-    cpu = Engine(art.graph, art.params, device="cpu").run(image=x)
+    cpu = Engine(art.graph, art.params, device="cpu", block_fusion=False).run(image=x)
     assert torch.equal(logits.cpu(), cpu)
 
 
@@ -238,7 +238,7 @@ def test_block_fused_engine_every_node_equals_plain(cuda):
         assert torch.equal(env[n.name], plain[n.name]), n.name
     cpu = Engine(art.graph, art.params, device="cpu", block_fusion=True).run(image=x)
     assert torch.equal(logits.cpu(), cpu)
-    assert torch.equal(logits, Engine(art.graph, art.params).run(image=x))
+    assert torch.equal(logits, Engine(art.graph, art.params, block_fusion=False).run(image=x))
 
 
 @pytest.mark.cuda
@@ -738,7 +738,8 @@ def test_fused_qstem_on_prepared_weights(cuda):
     """``fused_qstem`` on ``prepare_weight``'s view prepares nothing and
     lays each launch out once; on the HWIO weight it prepares on each call
     (counted); both equal the plain version; a shape the plan has no
-    launch for raises."""
+    launch for (k 9) takes the quantize and the stride-2 conv kernel
+    (``TWO_PASS``), equal to the plain version too."""
     rng = np.random.default_rng(4)
     x, w_q, es, eb = _stem_case(rng, 3, 64, 64, 3, 64, 7, False)
     xf = torch.as_tensor(x.astype(np.float32) * np.float32(0.02)).to(cuda)
@@ -752,9 +753,13 @@ def test_fused_qstem_on_prepared_weights(cuda):
     assert kernels.prepared_per_call()["qstem"] == 0 and kernels.launch_counts()["qstem"] == 3
     assert torch.equal(qstem.fused_qstem(xf, w_q, es, eb, **kw), want)
     assert kernels.prepared_per_call()["qstem"] == 1
-    w9 = torch.zeros((9, 9, 3, 8), dtype=torch.int8, device=cuda)
-    with pytest.raises(ValueError, match="no launch"):
-        qstem.fused_qstem(xf, w9, es[:8], eb[:8], **kw)
+    w9 = torch.as_tensor(rng.integers(-127, 128, (9, 9, 3, 8), dtype=np.int8)).to(cuda)
+    before = dict(qstem.TWO_PASS), kernels.launch_counts()
+    got = qstem.fused_qstem(xf, w9, es[:8], eb[:8], **kw)
+    assert torch.equal(got, qstem.fused_qstem(xf, w9, es[:8], eb[:8], plain=True, **kw))
+    assert qstem.TWO_PASS["qstem"] == before[0]["qstem"] + 1
+    assert kernels.launch_counts()["qconv_s2"] == before[1]["qconv_s2"] + 1
+    assert kernels.launch_counts()["qstem"] == before[1]["qstem"]
 
 
 @pytest.mark.cuda
@@ -770,12 +775,12 @@ def test_stem_engines_every_node_equals_plain(cuda):
                               depths=(1, 1, 1, 1), classes=64)
     x = np.random.default_rng(0).standard_normal((2, 64, 64, 3)).astype(np.float32)
     xt = torch.as_tensor(x).to(cuda)
-    default = Engine(art.graph, art.params).run(image=x)
-    # the default's counts, its stem (one qstem launch) taken off
+    default = Engine(art.graph, art.params, block_fusion=False).run(image=x)
+    # the unfused Engine's counts, its stem (one qstem launch) taken off
     base = {"qmatmul_pot4": 9, "qmatmul_int8": 1, "qconv_s1": 1, "qconv_s2": 6,
             "qblockchain": 0, "qlrn": 0, "qattention": 0, "qconv_s2x1": 0, "qstem": 0}
     for flag, moved in (("phase_stem", {"qconv_s2x1": 1}), ("optimize", {"qconv_s1": 2})):
-        eng = Engine(art.graph, art.params, **{flag: True})
+        eng = Engine(art.graph, art.params, block_fusion=False, **{flag: True})
         kernels.reset_launch_counts()
         logits = eng.run(image=x)
         assert kernels.launch_counts() == {**base, **moved}, flag
@@ -784,7 +789,8 @@ def test_stem_engines_every_node_equals_plain(cuda):
         for n in eng.graph.nodes:
             assert torch.equal(env[n.name], plain[n.name]), (flag, n.name)
         assert torch.equal(logits, default)
-        cpu = Engine(art.graph, art.params, device="cpu", **{flag: True}).run(image=x)
+        cpu = Engine(art.graph, art.params, device="cpu", block_fusion=False,
+                     **{flag: True}).run(image=x)
         assert torch.equal(logits.cpu(), cpu)
 
 
@@ -844,3 +850,250 @@ def test_engine_with_plain_nodes_equals_cpu(cuda, case):
     for n in eng.graph.nodes:
         assert torch.equal(env[n.name].cpu(), cpu_env[n.name]), n.name
     assert torch.equal(logits.cpu(), cpu.run(image=x))
+
+
+# ---- the captured forward, the routes, the wide stems (the Engine as the
+# reference runs it) ----
+
+def _small_resnet(batch=2):
+    from tf2_tpu_torch.models import synthetic_quantized
+
+    return synthetic_quantized("resnet50", seed=0, batch=batch, image=64,
+                               depths=(1, 1, 1, 1), classes=64)
+
+
+def _images(dev, n, batch=2, image=64, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal((batch, image, image, 3),
+                                                dtype=np.float32)).to(dev) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [{"block_fusion": False}, {}])
+def test_built_engine_replays_equal_eager(cuda, flags):
+    """``build`` runs one eager forward and one capture (twice a forward's
+    launches, counted in the wrappers), then every call replays the graph:
+    no wrapper runs (launch counts stay 0), three seeded inputs give the
+    eager forward's outputs bit for bit, an output is not overwritten by
+    the next call, and an input of another shape or dtype raises."""
+    from tf2_tpu_torch.runtime import Engine
+
+    art = _small_resnet()
+    eager = Engine(art.graph, art.params, **flags)
+    xs = _images(cuda, 3)
+    want = [eager.run(image=x) for x in xs]
+    kernels.reset_launch_counts()
+    eager.run(image=xs[0])
+    per_forward = kernels.launch_counts()
+    eng = Engine(art.graph, art.params, **flags)
+    kernels.reset_launch_counts()
+    assert eng.build(image=xs[0]) is eng and eng.built
+    assert kernels.launch_counts() == {k: 2 * v for k, v in per_forward.items()}
+    kernels.reset_launch_counts()
+    outs = [eng.run(image=x) for x in xs]
+    assert set(kernels.launch_counts().values()) == {0}
+    for got, w in zip(outs, want):
+        assert torch.equal(got, w)
+    first = outs[0].clone()
+    eng.run(image=xs[1])
+    assert torch.equal(outs[0], first)
+    assert torch.equal(eng.run(image=xs[2].cpu().numpy()), want[2])
+    with pytest.raises(ValueError, match="built for"):
+        eng(image=torch.zeros((1, 64, 64, 3), device=cuda))
+    with pytest.raises(ValueError, match="built for"):
+        eng(image=xs[0].double())
+    r = eng.benchmark(iters=5, reps=2, image=xs[0])
+    assert r["captured"] and r["latency_s"] > 0
+
+
+@pytest.mark.cuda
+def test_donated_built_engine_equals_nondonated(cuda):
+    from tf2_tpu_torch.runtime import Engine
+
+    art = _small_resnet()
+    xs = _images(cuda, 3, seed=1)
+    ref = Engine(art.graph, art.params).build(image=xs[0])
+    want = [ref.run(image=x) for x in xs]
+    for built in (False, True):
+        eng = Engine(art.graph, art.params, donate_inputs=True)
+        if built:
+            eng.build(image=xs[0].clone())
+        for x, w in zip(xs, want):
+            mine = x.clone()
+            assert torch.equal(eng.run(image=mine), w)
+            assert mine.untyped_storage().nbytes() == 0
+        assert all(x.untyped_storage().nbytes() > 0 for x in xs)
+
+
+@pytest.mark.cuda
+def test_ssd_build_raises_its_reason(cuda):
+    from tf2_tpu_torch.models import synthetic_quantized
+    from tf2_tpu_torch.runtime import Engine
+
+    art = synthetic_quantized("ssd", seed=0, batch=1, image=128)
+    eng = Engine(art.graph, art.params)
+    with pytest.raises(RuntimeError, match="waits on the host.*nms"):
+        eng.build()
+    assert not eng.built and tuple(eng.run().shape) == (1, 100, 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,relu,resid", [(1, 64, 16, True, False), (40, 60, 20, False, True),
+                                              (3136, 64, 256, True, False),
+                                              (64, 2048, 1000, False, False),
+                                              (394, 768, 2304, True, True)])
+def test_library_matmul_matches_int8_kernel(cuda, m, k, n, relu, resid):
+    """The ``library`` route (``torch._int_mm`` and the f32 epilogue) on
+    the Engine's K-major weight equals the int8 GEMM kernel bit for bit."""
+    from tf2_tpu_torch.kernels import dispatch
+
+    x, _, w, es, eb = _tensors(cuda, *_gemm(np.random.default_rng(m + n), m, k, n))
+    r = None
+    if resid:
+        r = (torch.as_tensor(np.random.default_rng(k).integers(-127, 128, (m, n),
+                                                               dtype=np.int8)).to(cuda), 0.21)
+    wk = shift_matmul.prepare_weight(w)
+    want = shift_matmul.qmatmul_int8(x, wk, es, eb, relu, r)
+    assert torch.equal(dispatch.library_matmul(x, wk, es, eb, relu, r), want)
+    assert torch.equal(want, shift_matmul.qmatmul_int8_plain(x, w, es, eb, relu, r))
+
+
+def _routed(art, table_path, route):
+    """An Engine on ``route`` for every conv and dense key that has it
+    (``library``: ``set_use_kernels(False)``)."""
+    import json
+
+    from tf2_tpu_torch.graph.shapes import activation_shapes
+    from tf2_tpu_torch.kernels import autotune, dispatch
+    from tf2_tpu_torch.runtime import Engine
+
+    if route == "library":
+        dispatch.set_use_kernels(False)
+    else:
+        shapes = activation_shapes(art.graph, art.params)
+        routes = {}
+        for n in art.graph.nodes:
+            a = n.attrs
+            if n.op == "qconv2d" and "kernel_int8" in dispatch.conv_choices(
+                    a["kshape"], a.get("strides", [1, 1]), a.get("padding", "SAME"),
+                    a.get("groups", 1), a["wfmt"]):
+                routes[autotune.conv_key(shapes[n.inputs[0]], a["kshape"],
+                                         a.get("strides", [1, 1]), a.get("groups", 1),
+                                         a["wfmt"])] = route
+            elif n.op == "qdense" and a["wfmt"] == "pot4":
+                routes[autotune.dense_key(shapes[n.inputs[0]], a["kshape"], a["wfmt"])] = route
+        table_path.write_text(json.dumps({"routes": routes, "detail": {}}))
+        autotune.set_table_path(str(table_path))
+    try:
+        return Engine(art.graph, art.params, block_fusion=False)
+    finally:
+        dispatch.set_use_kernels(None)
+        autotune.set_table_path(None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["kernel_int8", "library"])
+def test_routed_engine_bit_equal_to_kernel(cuda, tmp_path, route):
+    """Engines routed through ``kernel_int8`` (every pot4 conv and GEMM
+    decoded at load, on the int8 kernels) and ``library`` (every GEMM on
+    ``torch._int_mm``) equal ``set_use_kernels(True)``'s node by node,
+    eager and built."""
+    from tf2_tpu_torch.graph import execute
+    from tf2_tpu_torch.kernels import dispatch
+    from tf2_tpu_torch.runtime import Engine
+
+    art = _small_resnet()
+    dispatch.set_use_kernels(True)
+    try:
+        base = Engine(art.graph, art.params, block_fusion=False)
+    finally:
+        dispatch.set_use_kernels(None)
+    eng = _routed(art, tmp_path / "t.json", route)
+    assert eng.routes and set(eng.routes.values()) == {route}
+    assert bool(eng.library_nodes) == (route == "library")
+    x = _images(cuda, 1)[0]
+    kernels.reset_launch_counts()
+    logits = eng.run(image=x)
+    counts = kernels.launch_counts()
+    if route == "kernel_int8":
+        assert counts["qmatmul_pot4"] == 0 and counts["qmatmul_int8"] > 1
+    else:
+        assert counts["qmatmul_pot4"] + counts["qmatmul_int8"] == 0
+    _, env = execute(eng.graph, intermediates=True, library_nodes=eng.library_nodes)(
+        eng.params, image=x)
+    _, base_env = execute(base.graph, intermediates=True)(base.params, image=x)
+    for n in eng.graph.nodes:
+        assert torch.equal(env[n.name], base_env[n.name]), n.name
+    assert torch.equal(logits, base.run(image=x))
+    assert torch.equal(eng.build(image=x).run(image=x), logits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,cout", [(9, 64), (7, 288)])
+def test_wide_stem_engine_on_card(cuda, k, cout):
+    """A stem ``covers`` takes and the stem kernel's plan has no launch for
+    (``coverage_cases.stem_artifact``): outside ``Engine.stem_plan``, on the
+    quantize and the stride-2 conv kernel; every node equal to the plain
+    path and the logits to the Engine on the CPU, eager and built; and
+    ``fused_qstem`` on its weight takes the same two passes (``TWO_PASS``),
+    equal to ``qstem_plain``."""
+    from tf2_tpu_torch.bench import coverage_cases
+    from tf2_tpu_torch.graph import execute
+    from tf2_tpu_torch.runtime import Engine
+
+    art = coverage_cases.stem_artifact(k, cout)
+    x = _images(cuda, 1, image=32, seed=k)[0]
+    eng = Engine(art.graph, art.params)
+    assert eng.stem_nodes == frozenset() and eng.plain_nodes == frozenset()
+    kernels.reset_launch_counts()
+    logits = eng.run(image=x)
+    assert kernels.launch_counts()["qstem"] == 0 and kernels.launch_counts()["qconv_s2"] == 1
+    _, env = execute(eng.graph, intermediates=True)(eng.params, image=x)
+    _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=x)
+    for n in eng.graph.nodes:
+        assert torch.equal(env[n.name], plain[n.name]), n.name
+    cpu = Engine(art.graph, art.params, device="cpu").run(image=x.cpu())
+    assert torch.equal(logits.cpu(), cpu)
+    assert torch.equal(eng.build(image=x).run(image=x), logits)
+    stem = eng.graph.nodes[0]
+    w, es, eb = (eng.params[p] for p in stem.params)
+    before = qstem.TWO_PASS["qstem"]
+    kw = dict(padding="SAME", relu=stem.attrs["relu"], scale=stem.attrs["s_in"])
+    got = qstem.fused_qstem(x, w, es, eb, **kw)
+    assert qstem.TWO_PASS["qstem"] == before + 1
+    assert torch.equal(got, qstem.fused_qstem(x, w, es, eb, plain=True, **kw))
+    assert torch.equal(got, env[stem.name])
+
+
+@pytest.mark.cuda
+def test_tune_graph_and_validate_routes(cuda, tmp_path):
+    """The sweep on a small ResNet: every entry's routes timed, each
+    detail naming the card, each kept route plausible and past the margin;
+    the whole-graph A/B returns its times and demotes what does not win."""
+    from tf2_tpu_torch.kernels import autotune
+
+    art = _small_resnet()
+    autotune.set_table_path(str(tmp_path / "t.json"))
+    try:
+        res = autotune.tune_graph(art.graph, art.params, iters=3, reps=2)
+        assert res and all("kernel_ms" in d and d["card"] for d in res.values())
+        for key, d in res.items():
+            if d["winner"] != "kernel":
+                assert autotune.plausible(key, d[f"{d['winner']}_ms"])
+                assert d[f"{d['winner']}_ms"] * d["margin"] < d["kernel_ms"]
+        v = autotune.validate_routes(art.graph, art.params, iters=3, reps=2)
+        assert set(v) >= {"routed_ms", "kernel_ms", "kept", "routed"}
+        if not v["kept"]:
+            assert all(r == "kernel" for r in autotune._load()["routes"].values())
+    finally:
+        autotune.set_table_path(None)
+
+
+@pytest.mark.cuda
+def test_entry_on_card(cuda):
+    from tf2_tpu_torch.entry import entry
+
+    fwd, (params, image) = entry(batch=2, image=64, depths=(1, 1, 1, 1), classes=64)
+    assert image.device.type == "cuda"
+    y = fwd(params, image)
+    assert tuple(y.shape) == (2, 64) and bool(torch.isfinite(y).all())

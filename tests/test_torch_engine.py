@@ -56,7 +56,7 @@ def case():
 
 def _port_engine(case, phase_stem=False):
     g, p = from_reference(case["art"].graph.to_json(), case["art"].params)
-    return Engine(g, p, device="cpu", phase_stem=phase_stem)
+    return Engine(g, p, device="cpu", phase_stem=phase_stem, block_fusion=False)
 
 
 def _logits_equal_reference_engine(case, phase_stem):
@@ -130,7 +130,7 @@ def test_phase_stem_engine_graph_matches_reference(case, merge):
 
     art = case["art"]
     g, p = from_reference(art.graph.to_json(), art.params)
-    eng = Engine(g, p, device="cpu", phase_stem=True, merge_1x1=merge)
+    eng = Engine(g, p, device="cpu", phase_stem=True, merge_1x1=merge, block_fusion=False)
     ref = RefEngine(art.graph, art.params, phase_stem=True, merge_1x1=merge)
     params = {k: v.numpy() for k, v in eng.params.items()}
     pot4 = {n.name for n in eng.graph.nodes if n.attrs.get("wfmt") == "pot4"}

@@ -348,7 +348,7 @@ def test_engine_holds_pot4_gemm_weights_prepared():
 
     art = synthetic_quantized("resnet50", seed=0, batch=1, image=32, classes=10,
                               depths=(1, 1, 1, 1))
-    eng = Engine(art.graph, art.params, device="cpu")
+    eng = Engine(art.graph, art.params, device="cpu", block_fusion=False)
     gemms = [n for n in eng.graph.nodes if dispatch.runs_gemm(n, "pot4")]
     convs = [n for n in eng.graph.nodes
              if n.op == "qconv2d" and n.attrs.get("wfmt") == "pot4" and n not in gemms]

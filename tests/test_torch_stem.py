@@ -189,7 +189,7 @@ def test_optimize_engine_matches_reference(resnet):
     and space_to_depth values and the logits equal; the stem is a
     stride-1 4x4 VALID conv on 12 channels of the raw image."""
     eng = Engine(*from_reference(resnet["art"].graph.to_json(), resnet["art"].params),
-                 device="cpu", optimize=True)
+                 device="cpu", optimize=True, block_fusion=False)
     params = {k: v.numpy() for k, v in eng.params.items()}
     pot4 = {n.name for n in eng.graph.nodes if n.attrs.get("wfmt") == "pot4"}
     decoded, _ = _decode_pot4(eng.graph, params, pot4)

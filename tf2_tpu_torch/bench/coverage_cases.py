@@ -10,6 +10,10 @@ tests/test_torch_cuda.py.
   take. Its stem, a pointwise conv and the classifier do have kernels.
 - ``tiny_vit_hd24``: a ViT whose heads are 24 wide (dim 48, 2 heads), which
   the attention kernel does not take (hd a multiple of 16).
+- ``stem_graph``: a CNN whose image stem is a k x k stride-2 conv that the
+  stem kernel's ``covers`` takes and its plan has no launch for (k 9, or
+  cout 288): the Engine keeps the quantize and the stride-2 conv kernel,
+  and ``qstem.fused_qstem`` takes the same two passes (``TWO_PASS``).
 """
 from __future__ import annotations
 
@@ -61,3 +65,32 @@ def tiny_vit_hd24(batch: int = 2, seed: int = 0):
 
     return synthetic_quantized("vit_b16", seed=seed, batch=batch, image=64, classes=10,
                                dim=48, depth=1, heads=2, weight_bits=8)
+
+
+# (k, cout) of the stems the stem kernel's plan takes no launch for
+WIDE_STEMS = ((9, 64), (7, 288))
+
+
+def stem_graph(builder, k: int, cout: int, batch: int = 2, image: int = 32,
+               classes: int = 10):
+    """A k x k stride-2 SAME stem on 3 channels to ``cout``, a pointwise
+    conv, the classifier; built with ``builder``."""
+    b = builder(f"stem_k{k}_co{cout}")
+    x = b.input("image", (batch, image, image, 3))
+    x = b.relu(b.conv2d(x, 3, cout, k, stride=2, padding="SAME", name="stem_conv"), name="stem")
+    x = b.relu(b.conv2d(x, cout, 32, 1, name="pw_conv"), name="pw")
+    x = b.global_avgpool(x, name="gap")
+    return b.build(b.dense(x, 32, classes, name="head"), family="cnn")
+
+
+def stem_artifact(k: int, cout: int, batch: int = 2, image: int = 32, seed: int = 0):
+    """``stem_graph`` quantized as ``conv_artifact`` quantizes."""
+    from ..graph import GraphBuilder
+    from ..graph.init_params import init_params
+    from ..models import SYNTHETIC_ACT_SCALE
+    from ..transform import QuantSpec, fold_batch_norm, quantize_graph
+
+    g = stem_graph(GraphBuilder, k, cout, batch=batch, image=image)
+    fg, fp = fold_batch_norm(g, init_params(g, seed=seed))
+    scales = dict.fromkeys(list(fg.inputs) + [n.name for n in fg.nodes], SYNTHETIC_ACT_SCALE)
+    return quantize_graph(fg, fp, scales, QuantSpec(weight_bits=4, pot_candidates=5))

@@ -39,10 +39,11 @@ import torch
 import torch.nn.functional as F
 
 from tf2_tpu_torch.bench.conv_bound import bound_ms, conv_work
-from tf2_tpu_torch.kernels import build, qconv
+from tf2_tpu_torch.kernels import autotune, build, qconv
 
-MODELS = [("resnet50", {}, {}), ("resnet50", {}, {"phase_stem": True}),
-          ("resnet50", {}, {"optimize": True}), ("googlenet", {}, {}),
+MODELS = [("resnet50", {}, {"block_fusion": False}),
+          ("resnet50", {}, {"phase_stem": True, "block_fusion": False}),
+          ("resnet50", {}, {"optimize": True, "block_fusion": False}), ("googlenet", {}, {}),
           ("squeezenet_v1_1", {}, {}), ("ssd", {"image": 256, "classes": 21}, {})]
 
 
@@ -62,21 +63,8 @@ def cuda_ms(fn, iters: int) -> float:
 def graph_ms(fn, iters: int) -> float:
     """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
     graph and replayed: the kernels alone, without the host's launch
-    overhead."""
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(iters):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    g.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    overhead (``kernels.autotune.graph_ms``)."""
+    return autotune.graph_ms(fn, iters)[0]
 
 
 def conv_shapes(name: str, build_kw: dict, flags: dict) -> list[tuple]:

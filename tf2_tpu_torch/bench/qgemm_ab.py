@@ -130,7 +130,8 @@ def pot4_shapes() -> list[tuple]:
     from tf2_tpu_torch.runtime import Engine
 
     rows = []
-    for name, options in [("resnet50", {"": {}, " block_fusion": {"block_fusion": True}}),
+    for name, options in [("resnet50", {"": {"block_fusion": False},
+                                        " block_fusion": {"block_fusion": True}}),
                           ("googlenet", {"": {}, " merge_1x1": {"merge_1x1": True}}),
                           ("squeezenet_v1_1", {"": {}, " merge_1x1": {"merge_1x1": True}})]:
         art = synthetic_quantized(name, seed=0, batch=1)

@@ -61,7 +61,7 @@ def pot4_call(package: str):
     runtime = importlib.import_module(f"{package}.runtime")
     shift_matmul = importlib.import_module(f"{package}.kernels.shift_matmul")
     art = models.synthetic_quantized("resnet50", seed=0, batch=1)
-    eng = runtime.Engine(art.graph, art.params)
+    eng = runtime.Engine(art.graph, art.params, block_fusion=False)
     node = next(n for n in eng.graph.nodes  # a 1x1 stride-1 pot4 conv: the GEMM's route
                 if n.op == "qconv2d" and n.attrs.get("wfmt") == "pot4"
                 and list(n.attrs["kshape"][:2]) + list(n.attrs.get("strides", [1, 1])) == [1] * 4)

@@ -12,7 +12,8 @@ def _box_decode(node, params, loc):
                                   tuple(node.attrs.get("variances", (0.1, 0.2))))
 
 
-@register_op("nms")
+@register_op("nms", host_sync="the greedy keep mask is a fixpoint whose every round "
+                             "compares on the host (kernels/detection.py: greedy_keep)")
 def _nms(node, params, boxes, scores):
     return detection.batched_nms(
         boxes, scores, max_out=node.attrs.get("max_out", 100),

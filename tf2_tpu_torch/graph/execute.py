@@ -5,7 +5,11 @@ Ops with a kernel (``register_op(..., kernel=True)``) take a ``plain`` flag:
 ``execute(graph, plain=True)`` runs their plain PyTorch versions instead of
 the kernels, on any device, as the reference a kernel run is held against;
 ``execute(graph, plain_nodes=names)`` runs only the named nodes so (the
-Engine's coverage plan: the nodes no kernel takes).
+Engine's coverage plan: the nodes no kernel takes), and
+``execute(graph, library_nodes=names)`` runs the named dense and 1x1 conv
+nodes on the ``library`` route (``torch._int_mm``; the Engine's routes,
+``kernels/dispatch.py``). An op whose executor waits on the host is
+registered with the reason (``host_sync``); ``host_syncs`` lists a graph's.
 """
 from __future__ import annotations
 
@@ -21,21 +25,34 @@ Params = Mapping[str, torch.Tensor]
 
 # op name -> (fn(node, params, *inputs[, plain=]), takes_plain)
 _OP_IMPLS: dict[str, tuple[Callable, bool]] = {}
+# op name -> why its executor waits on the host
+_HOST_SYNC: dict[str, str] = {}
+_LIBRARY = {"qconv2d": dispatch.qconv2d_library, "qdense": dispatch.qdense_library}
 
 
-def register_op(name: str, kernel: bool = False):
+def register_op(name: str, kernel: bool = False, host_sync: str | None = None):
     def deco(fn):
         _OP_IMPLS[name] = (fn, kernel)
+        if host_sync:
+            _HOST_SYNC[name] = host_sync
         return fn
     return deco
 
 
+def host_syncs(graph: Graph) -> list[str]:
+    """"<node> (<op>): <reason>" for each node whose executor waits on the
+    host, which a CUDA graph cannot capture."""
+    return [f"{n.name} ({n.op}): {_HOST_SYNC[n.op]}" for n in graph.nodes if n.op in _HOST_SYNC]
+
+
 def execute(graph: Graph, intermediates: bool = False, plain: bool = False,
-            plain_nodes: frozenset[str] = frozenset()):
+            plain_nodes: frozenset[str] = frozenset(),
+            library_nodes: frozenset[str] = frozenset()):
     """Return fn(params, **inputs) -> outputs (a tuple if several). With
     ``intermediates=True`` it returns (outputs, dict of every value). The
     nodes named in ``plain_nodes`` run their plain versions, as every node
-    does with ``plain=True``."""
+    does with ``plain=True``; those in ``library_nodes`` (unless plain)
+    their ``library`` route."""
 
     def fn(params: Params, **inputs):
         env: dict[str, torch.Tensor] = dict(inputs)
@@ -47,7 +64,9 @@ def execute(graph: Graph, intermediates: bool = False, plain: bool = False,
             # per-node profiler scope: torch.profiler attributes host and
             # device time to "<op>:<node>"
             with torch.profiler.record_function(f"{node.op}:{node.name}"):
-                if takes_plain:
+                if node.name in library_nodes and not plain:
+                    env[node.name] = _LIBRARY[node.op](node, params, *args)
+                elif takes_plain:
                     env[node.name] = impl(node, params, *args,
                                           plain=plain or node.name in plain_nodes)
                 else:

@@ -2,9 +2,10 @@
 libraries with a plain C interface, and loads them with ctypes.
 
 The build runs at first use, one nvcc process per source, all started
-together. Outputs go to ``kernels/build/`` (not tracked by git), named by a
-digest of the sources and flags, so an edited source is rebuilt and an
-unchanged one is reused.
+together. Outputs go to ``kernels/build/`` (not tracked by git), or to the
+directory that ``TF2TPU_TORCH_KERNEL_CACHE`` names, named by a digest of
+the sources and flags, so an edited source is rebuilt and an unchanged one
+is reused.
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ import numpy as np
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
-BUILD_DIR = Path(__file__).with_name("build")
+CACHE_ENV = "TF2TPU_TORCH_KERNEL_CACHE"
+DEFAULT_BUILD_DIR = Path(__file__).with_name("build")
+BUILD_DIR = Path(os.environ.get(CACHE_ENV) or DEFAULT_BUILD_DIR)
 SOURCES = ("shift_matmul.cu", "qconv.cu", "qblocks.cu", "qlrn.cu", "qattention.cu",
            "qstem.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

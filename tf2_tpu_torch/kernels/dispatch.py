@@ -3,7 +3,17 @@ dense layer and every attention core goes through one of the CUDA kernels
 (or, with ``plain=True`` or on the CPU, through that kernel's plain
 version). The transformer glue (``qlayernorm``, ``qgelu``, ``qbias_add``)
 is plain PyTorch on either device, as the reference computes it outside
-any kernel, in steps that give the same bits on the card and the CPU."""
+any kernel, in steps that give the same bits on the card and the CPU.
+
+Each conv and dense node has a route, chosen once at load by the Engine
+(``route_conv``, ``route_dense``; the counterparts of the reference's,
+``tf2_tpu/kernels/dispatch.py:74-103``), every route exact: ``kernel`` (the
+packed pot4 kernel, or the int8 kernel for int8 weights), ``kernel_int8``
+(a pot4 node decoded once at load and run on the int8 kernel of its op) or
+``library`` (a dense or 1x1 GEMM on ``torch._int_mm`` with the epilogue in
+eager f32 steps: ``qdense_library``, ``qconv2d_library``). An override
+(``set_use_kernels``) > the measured table (``kernels/autotune.py``) >
+``kernel``."""
 from __future__ import annotations
 
 import functools
@@ -13,6 +23,105 @@ import torch
 import torch.nn.functional as F
 
 from . import build, qattention, qblocks, qconv, qlrn as qlrn_kernel, qstem, shift_matmul
+
+ROUTES = ("kernel", "kernel_int8", "library")
+_USE_KERNELS: bool | None = None   # None: the table; True / False: forced
+
+
+def set_use_kernels(flag: bool | None) -> None:
+    """Force every conv and dense node to ``kernel`` (True) or to its
+    non-kernel route where it has one (False: ``library`` for a dense or
+    1x1 GEMM, ``kernel`` elsewhere), or follow the routing table (None).
+    Read by the Engine at load: an Engine keeps the routes it was built
+    with."""
+    global _USE_KERNELS
+    _USE_KERNELS = flag
+
+
+def use_kernels() -> bool | None:
+    return _USE_KERNELS
+
+
+def _route(key: str, choices: tuple[str, ...]) -> str:
+    """Override > table (a route the node does not have counts as none) >
+    ``kernel``."""
+    if _USE_KERNELS is not None:
+        return "kernel" if _USE_KERNELS or "library" not in choices else "library"
+    from . import autotune
+    r = autotune.route(key)
+    return r if r in choices else "kernel"
+
+
+def _is_gemm(kshape, strides, padding, groups: int) -> bool:
+    """A 1x1 stride-1 ungrouped conv without padding: ``qconv.fused_qconv2d``
+    runs it as a GEMM over the B * H * W pixels."""
+    zero_pads = isinstance(padding, str) or all(p == 0 for pair in padding for p in pair)
+    return (groups == 1 and zero_pads
+            and tuple(kshape[:2]) + tuple(strides) == (1, 1, 1, 1))
+
+
+def conv_choices(kshape, strides, padding, groups: int, wfmt: str) -> tuple[str, ...]:
+    """The exact routes of a conv: ``kernel_int8`` for pot4 weights the
+    conv kernels or the GEMM take, ``library`` for a GEMM."""
+    gemm = _is_gemm(kshape, strides, padding, groups)
+    out = ["kernel"]
+    if wfmt == "pot4" and (gemm or qconv.covers(kshape, strides, groups)):
+        out.append("kernel_int8")
+    if gemm and wfmt in ("pot4", "int8"):
+        out.append("library")
+    return tuple(out)
+
+
+def dense_choices(wfmt: str) -> tuple[str, ...]:
+    return {"pot4": ROUTES, "int8": ("kernel", "library")}.get(wfmt, ("kernel",))
+
+
+def route_conv(xshape, kshape, strides, groups: int, wfmt: str, padding="SAME") -> str:
+    """The route of a conv node of these shapes (see ``set_use_kernels``)."""
+    from . import autotune
+    key = autotune.conv_key(xshape, kshape, strides, groups, wfmt)
+    return _route(key, conv_choices(kshape, strides, padding, groups, wfmt))
+
+
+def route_dense(xshape, kshape, wfmt: str) -> str:
+    """The route of a dense node of these shapes (see ``set_use_kernels``)."""
+    from . import autotune
+    return _route(autotune.dense_key(xshape, kshape, wfmt), dense_choices(wfmt))
+
+
+def route_node(node, xshape) -> str:
+    """The route of a ``qconv2d`` or ``qdense`` node on input shape
+    ``xshape``; ``kernel`` for any other node."""
+    a = node.attrs
+    if node.op == "qconv2d":
+        padding = a.get("padding", "SAME")
+        return route_conv(xshape, a["kshape"], a.get("strides", [1, 1]), a.get("groups", 1),
+                          a.get("wfmt"), padding if isinstance(padding, str)
+                          else [tuple(p) for p in padding])
+    if node.op == "qdense":
+        return route_dense(xshape, a["kshape"], a.get("wfmt"))
+    return "kernel"
+
+
+def library_matmul(x_q: torch.Tensor, w_q: torch.Tensor, eff_scale, eff_bias, relu: bool,
+                   residual=None) -> torch.Tensor:
+    """x_q (M, K) int8 . w_q (K, N) int8 by ``torch._int_mm`` (int32, exact),
+    then ``shift_matmul.epilogue``'s f32 steps, each its own operation: the
+    bits of ``qmatmul_int8``. ``_int_mm`` takes M > 16 and K, N multiples
+    of 8 on the card: X is padded with zero rows, and K and N with zeros,
+    as needed (the zoo's K and N need none)."""
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    if (kp, np_) != (k, n):
+        w_q = F.pad(w_q, (0, np_ - n, 0, kp - k))
+    mp = max(m, 17)
+    if (mp, kp) != (m, k):
+        x_q = F.pad(x_q, (0, kp - k, 0, mp - m))
+    acc = torch._int_mm(x_q.contiguous(), w_q)
+    if (mp, np_) != (m, n):
+        acc = acc[:m, :n]
+    return shift_matmul.epilogue(acc, eff_scale, eff_bias, relu, residual)
 
 
 def quantize(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -87,6 +196,28 @@ def qdense(node, params, x_q: torch.Tensor, r_q: torch.Tensor | None = None,
         x_q.reshape(-1, x_q.shape[-1]), params[node.params[0]], params[node.params[1]],
         params[node.params[2]], node.attrs["relu"], node.attrs["wfmt"], plain, residual)
     return y.reshape(*x_q.shape[:-1], y.shape[-1])
+
+
+def qdense_library(node, params, x_q: torch.Tensor, r_q: torch.Tensor | None = None):
+    """A dense node on the ``library`` route (``library_matmul``); its
+    weight is int8 (decoded at load where it was pot4)."""
+    residual = None
+    if r_q is not None:
+        residual = (r_q.reshape(-1, r_q.shape[-1]), node.attrs["radd_scale"])
+    y = library_matmul(x_q.reshape(-1, x_q.shape[-1]), params[node.params[0]],
+                       params[node.params[1]], params[node.params[2]], node.attrs["relu"],
+                       residual)
+    return y.reshape(*x_q.shape[:-1], y.shape[-1])
+
+
+def qconv2d_library(node, params, x_q: torch.Tensor) -> torch.Tensor:
+    """A 1x1 stride-1 conv on the ``library`` route: the GEMM over the
+    B * H * W pixels (``library_matmul``)."""
+    b, h, w, cin = x_q.shape
+    cout = node.attrs["kshape"][-1]
+    y = library_matmul(x_q.reshape(b * h * w, cin), params[node.params[0]].reshape(cin, cout),
+                       params[node.params[1]], params[node.params[2]], node.attrs["relu"])
+    return y.reshape(b, h, w, cout)
 
 
 def qattention_core(node, params, qkv_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
@@ -200,10 +331,8 @@ def runs_gemm(node, wfmt: str) -> bool:
     if node.op == "qdense":
         return True
     a = node.attrs
-    padding = a.get("padding", "SAME")
-    zero_pads = isinstance(padding, str) or all(p == 0 for pair in padding for p in pair)
-    return (node.op == "qconv2d" and a.get("groups", 1) == 1 and zero_pads
-            and tuple(a["kshape"][:2]) + tuple(a.get("strides", (1, 1))) == (1, 1, 1, 1))
+    return node.op == "qconv2d" and _is_gemm(a["kshape"], a.get("strides", (1, 1)),
+                                             a.get("padding", "SAME"), a.get("groups", 1))
 
 
 def prepare_weights(graph, params, stem_nodes=frozenset()) -> dict:

@@ -4,9 +4,13 @@ image (quantized by ``scale``) or int8 image in, NHWC int8 out.
 
 ``fused_qstem`` is the entry, with the reference's contract: HWIO int8
 weights, ``None`` on a shape ``covers`` refuses. On CUDA tensors it
-launches ``csrc/qstem.cu`` as ``plan`` lays the launch out; on CPU tensors
-(and with ``plain``) it takes the plain version (``qstem_plain``:
-quantize, exact float64 conv, the f32 epilogue of ``qconv``). On the card
+launches ``csrc/qstem.cu`` as ``plan`` lays the launch out; a stem that
+``covers`` takes but ``plan`` has no launch for (k > 7, cout > 256, rows
+that do not fit shared memory) runs the two passes the Engine keeps for
+such stems, the quantize and the stride-2 conv kernel
+(``qconv.fused_qconv2d``), counted in ``TWO_PASS``. On CPU tensors (and
+with ``plain``) it takes the plain version (``qstem_plain``: quantize,
+exact float64 conv, the f32 epilogue of ``qconv``). On the card
 the Engine routes every zoo CNN's fused stem here: ``Engine.stem_plan``
 picks, at load, the stems ``routes`` takes, and ``dispatch.prepare_weights``
 gives their weights the kernel's layout once (``prepare_weight``: (N, k *
@@ -41,6 +45,9 @@ LAUNCHES = {"qstem": 0}
 # weights the wrapper prepared on a call, having been given none prepared;
 # 0 on every Engine forward
 PREPARED_PER_CALL = {"qstem": 0}
+# calls of ``fused_qstem`` on the card that took the quantize and the
+# stride-2 conv kernel, the stem having no launch of this kernel
+TWO_PASS = {"qstem": 0}
 KSTEP = 32            # reduction indices of one dy chunk: one k32 wgmma step
 SMEM_LIMIT = 232448   # dynamic shared memory a block may have on sm_90
 SMEM_SM = 233472      # shared memory of an SM; a block also takes 1 KB
@@ -433,21 +440,38 @@ def qstem(x: torch.Tensor, wmat: torch.Tensor, eff_scale, eff_bias, *, kh: int, 
     return _launch(x, w_q, eff_scale, eff_bias, _norm_padding(padding), relu, scale)
 
 
+def _two_pass(x, w_q, es, eb, padding, relu: bool, scale) -> torch.Tensor:
+    """The quantize (with ``scale``) and the stride-2 conv kernel on the
+    HWIO weight (``prepare_weight``'s view holds the same values), as the
+    Engine runs a stem outside its stem plan; counted in ``TWO_PASS``."""
+    x_q = dispatch.quantize(x, scale) if scale is not None else x
+    y = qconv.fused_qconv2d(x_q, w_q.contiguous(), es, eb, strides=(2, 2), padding=padding,
+                            groups=1, relu=relu, wfmt="int8", kshape=tuple(w_q.shape))
+    TWO_PASS["qstem"] += 1
+    return y
+
+
 def fused_qstem(x: torch.Tensor, w_q, eff_scale, eff_bias, *, padding, relu: bool,
                 scale: float | None = None, plain: bool = False):
     """Quantize (with ``scale``) and the stem conv. x (B, H, W, C) f32 with
     ``scale`` or int8; w_q HWIO int8 (on the card ``prepare_weight``'s view
     is read as it is, any other is prepared on the call). -> NHWC int8 (B,
     OH, OW, cout), or None where ``covers`` refuses the shape; the plain
-    version when ``plain``. On the card, raises where ``plan`` has no
-    launch."""
+    version when ``plain``. On the card, a stem ``plan`` has no launch for
+    takes the quantize and the stride-2 conv kernel (``TWO_PASS``)."""
     padding = _norm_padding(padding)
     kh, kw, cin, cout = tuple(w_q.shape)
     if not covers((kh, kw, cin, cout), (2, 2), padding, 1, tuple(x.shape)):
         return None
     if not plain and x.device.type == "cuda":
-        return _launch(x, torch.as_tensor(w_q).to(x.device), _vector(eff_scale, x.device),
-                       _vector(eff_bias, x.device), padding, relu, scale)
+        w_q = torch.as_tensor(w_q).to(x.device)
+        es, eb = _vector(eff_scale, x.device), _vector(eff_bias, x.device)
+        b, h, wd, _ = x.shape
+        sms, max_smem = _card(x.device)
+        if plan(b, h, wd, cin, cout, kh, padding, scale is not None, _align(x.data_ptr()), sms,
+                min(SMEM_LIMIT, max_smem)) is None:
+            return _two_pass(x, w_q, es, eb, padding, relu, scale)
+        return _launch(x, w_q, es, eb, padding, relu, scale)
     wmat = fold_weight(w_q).to(x.device)
     es = torch.as_tensor(eff_scale, dtype=torch.float32).reshape(-1).to(x.device)
     eb = torch.as_tensor(eff_bias, dtype=torch.float32).reshape(-1).to(x.device)

@@ -1,7 +1,7 @@
 """Where an Engine forward spends its time on the card, from a
 torch.profiler trace.
 
-    python -m tf2_tpu_torch.runtime.profile [--model NAME] [--trace-dir DIR]
+    python -m tf2_tpu_torch.runtime.profile [--model NAME] [--build] [--trace-dir DIR]
 
 Builds the model's synthetic artifact (224x224, 1000 classes, SSD 256x256,
 21 classes with the random score case; W4-PoT for the CNNs and SSD, W8 for
@@ -15,6 +15,9 @@ port's kernels by name, PyTorch's own kernels by short name) and by
 graph op (the executor's "<op>:<node>" ranges, where the trace has them on
 the device timeline), the host wall time per forward, and the device's
 idle share of that wall time (1 - union of kernel intervals / wall).
+With ``--build`` each Engine is built first (``Engine.build``: one CUDA
+graph a forward), so the profiled forwards are replays; the executor's
+ranges then run only at capture, and the trace has no device time by op.
 With ``--trace-dir`` the Chrome traces are kept there as
 ``profile_<model>_b<B>.json`` and ``profile_<model>_<option>_b<B>.json``.
 """
@@ -107,6 +110,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=sorted(OPTIONS), default="resnet50")
     ap.add_argument("--trace-dir", help="keep the Chrome traces here")
+    ap.add_argument("--build", action="store_true", help="profile built (captured) Engines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
@@ -125,9 +129,12 @@ def main() -> None:
             for b in BATCHES:
                 kw = {option: flag} if option else {}
                 eng = Engine(art.graph.with_batch_size(b), art.params, **kw)
-                name = f"profile_{args.model}_{option + '_' if flag else ''}b{b}.json"
+                if args.build:
+                    eng.build(image=images[b])
+                name = (f"profile_{args.model}_{option + '_' if flag else ''}"
+                        f"{'built_' if args.build else ''}b{b}.json")
                 out = profile(eng, images[b], os.path.join(trace_dir, name))
-                print(json.dumps({"model": args.model, "batch": b, **kw,
+                print(json.dumps({"model": args.model, "batch": b, **kw, "built": args.build,
                                   "device": torch.cuda.get_device_name(0), **out}))
 
 
