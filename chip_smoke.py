@@ -176,6 +176,35 @@ Phases, in order; any failure exits non-zero before the last line:
              node by node and set_use_kernels(True)'s logits.
 18. headline the headline bench's line (tf2_tpu_torch/bench/headline.py)
              from phase 16's built ResNet-50 Engines.
+19. transform the Transform Kit (tf2_tpu_torch/transform/) on the card,
+             from FP32 weights (init_params(seed 0)) through the CLI
+             (python -m tf2_tpu_torch.transform.cli, called as cli.main):
+             ResNet-50 W4 at 224x224, 1000 classes, calibration batch 4, two
+             batches, percentile, bias correction on: its JSON line and the
+             seconds of each stage printed, and the launches its bias
+             correction's replay made (qconv_s1, qconv_s2, qmatmul_pot4 and
+             qmatmul_int8 each more than 0). Its artifact, hashes verified,
+             on the block_fusion=False and default Engines at batch 64 and 1
+             (plain_nodes empty) as phases 4, 5 and 7 (every conv and GEMM
+             node against its plain version, launch counts, every node
+             equal to the plain path and at batch 1 to the CPU Engine, the
+             default's logits equal to the unfused ones), captured as phase
+             16; the relative error and cosine of its logits against the
+             folded FP32 forward (TF32 off) printed, not gated. The same CLI
+             with --platform cpu and with --platform cuda at image 64, batch
+             2 (full depth and width; the smaller image for the time limit):
+             equal weight hashes, scales within 1e-5 and es within 3e-5
+             relative, eb within 1e-3 output quanta, the largest of each
+             printed. The CLI with --prune 0.3 at 224x224: both Engines with
+             plain_nodes empty, every conv and GEMM node against its plain
+             version. GoogLeNet, SqueezeNet v1.1 (W4), vit_b16 (--wbits 8)
+             and SSD (21 classes, at its 256x256) at the CLI's defaults with
+             one calibration batch: each artifact's Engine (plain_nodes empty) on its
+             kernels equals the Engine with set_use_kernels(False). The f32
+             graph of coverage_cases.fp32_ops_graph (batch_norm, attention,
+             relu6, sigmoid, mul, SAME and VALID avgpool; dim 768, 12 heads,
+             196 tokens) on the card against the CPU, TF32 off, every node
+             within 1e-5 of its largest value. The phase's seconds printed.
 Every zoo Engine on the card (phases 3-14) must have empty plain_nodes:
 the coverage plan sends none of the zoo's nodes to a plain version.
 Launch counts are in the order (qmatmul_pot4, qmatmul_int8, qconv_s1,
@@ -2054,6 +2083,231 @@ def phase_headline(engines, art, x, smi: str) -> dict:
     return line
 
 
+# phase 19: the kernels bias correction's replay must launch (ResNet-50)
+REPLAY_KERNELS = ("qconv_s1", "qconv_s2", "qmatmul_pot4", "qmatmul_int8")
+# the other zoo models through the CLI: (model, extra CLI arguments); SSD at
+# its own image size, 256 (the CLI's default 224 is no multiple of its
+# coarsest stride, 64)
+TRANSFORM_ZOO = [("googlenet", []), ("squeezenet_v1_1", []), ("vit_b16", ["--wbits", "8"]),
+                 ("ssd", ["--image", "256"])]
+# f32 forward of fp32_ops_graph, card against CPU (TF32 off): each node's
+# largest difference relative to its largest value
+FP32_OPS_RTOL = 1e-5
+SCALE_ATTRS = ("in_scale", "out_scale", "in_scales", "s_in", "s_out", "radd_scale", "scale",
+               "sa", "sb", "so")
+
+
+def run_cli(argv) -> dict:
+    """``tf2_tpu_torch.transform.cli.main(argv)`` with its JSON line on the
+    log; -> its report (the line's fields and ``stage_seconds``)."""
+    import contextlib
+
+    from tf2_tpu_torch.transform import cli
+
+    report = {}
+    with contextlib.redirect_stdout(sys.stderr):
+        if cli.main([str(a) for a in argv], report=report):
+            raise RuntimeError(f"cli {argv}: non-zero exit")
+    log(f"cli {' '.join(map(str, argv))}: stages (s) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in report["stage_seconds"].items()))
+    return report
+
+
+def _folded_fp32(name: str, batch: int, image: int, classes: int, seed: int = 0):
+    """The folded f32 graph and params the CLI calibrates (init_params(seed),
+    BN folded, patchified), on the card."""
+    from tf2_tpu_torch.graph.init_params import init_params
+    from tf2_tpu_torch.graph.optimize import patchify_stem
+    from tf2_tpu_torch.models import get_model
+    from tf2_tpu_torch.transform import fold_batch_norm
+
+    g = get_model(name, batch=batch, image=image, classes=classes)
+    fg, fp = patchify_stem(*fold_batch_norm(g, init_params(g, seed=seed)))
+    return fg, {k: torch.as_tensor(np.asarray(v)).cuda() for k, v in fp.items()}
+
+
+def compare_artifacts(a, b) -> dict:
+    """Two artifacts of one model (graph, params): the same graph but for
+    the scale attributes, equal weight hashes (codes, int8 weights), and
+    the largest relative difference of the scales and of es, and the
+    largest difference of eb (output quanta)."""
+    from tf2_tpu_torch.transform.export import _hash
+
+    (ga, pa), (gb, pb) = a, b
+    na, nb = json.loads(ga.to_json())["nodes"], json.loads(gb.to_json())["nodes"]
+    if [(n["name"], n["op"], n["inputs"], n["params"]) for n in na] != \
+            [(n["name"], n["op"], n["inputs"], n["params"]) for n in nb]:
+        raise RuntimeError("artifacts: the graphs differ")
+    worst = {"scale_rel": 0.0, "es_rel": 0.0, "eb_quanta": 0.0}
+    for x, y in zip(na, nb):
+        for k, v in x["attrs"].items():
+            if k in SCALE_ATTRS:
+                u, w = np.asarray(v, np.float64), np.asarray(y["attrs"][k], np.float64)
+                worst["scale_rel"] = max(worst["scale_rel"], float((np.abs(u - w) / w).max()))
+            elif v != y["attrs"][k]:
+                raise RuntimeError(f"artifacts: {x['name']}.{k} {v} against {y['attrs'][k]}")
+    for k, v in pa.items():
+        if k.endswith((".wp", ".wq")):
+            if _hash(v) != _hash(pb[k]):
+                raise RuntimeError(f"artifacts: weight {k} differs")
+        elif k.endswith(".es"):
+            d = np.abs(v.astype(np.float64) - pb[k]) / np.abs(pb[k].astype(np.float64))
+            worst["es_rel"] = max(worst["es_rel"], float(d.max()))
+        elif k.endswith(".eb"):
+            worst["eb_quanta"] = max(worst["eb_quanta"],
+                                     float(np.abs(v.astype(np.float64) - pb[k]).max()))
+    return worst
+
+
+def _transform_engines(label, graph, params, images, stats, expected=None):
+    """The default and the block_fusion=False Engines of a CLI artifact at
+    batch 64 and 1 (plain_nodes empty), every conv and GEMM node against its
+    plain version (phase 4), both through phase_main (the default's logits
+    equal to the unfused Engine's), the default captured (phase 16).
+    Returns (summary, the default Engines)."""
+    engines, cpu_engines = make_engines(graph, params, {"unfused": {"block_fusion": False},
+                                                        "default": {}})
+    summary = {}
+    envs = phase_kernels(engines["unfused"], images, stats, timed=False)
+    _, summary["block_fusion=False"], logits = phase_main(
+        f"{label} block_fusion=False", engines["unfused"], cpu_engines["unfused"], images, envs,
+        EXPECTED_LAUNCHES if expected is None else expected["unfused"], graph=graph)
+    envs = phase_kernels(engines["default"], images, stats, timed=False)
+    _, summary["default"], _ = phase_main(
+        label, engines["default"], cpu_engines["default"], images, envs,
+        FUSED_LAUNCHES if expected is None else expected["default"], same_as=logits,
+        graph=graph)
+    summary["captured"] = phase_captured(label, engines["default"], summary["default"],
+                                         seed=19)
+    return summary, engines["default"]
+
+
+def phase_transform(stats) -> dict:
+    """Phase 19: the Transform Kit on the card (tf2_tpu_torch/transform/):
+    the CLI from FP32 weights (init_params(seed 0)) to an artifact, which
+    the Engines then run on the kernels. Returns the summary."""
+    from tf2_tpu_torch import kernels
+    from tf2_tpu_torch.bench.coverage_cases import fp32_ops_graph
+    from tf2_tpu_torch.graph import GraphBuilder, execute
+    from tf2_tpu_torch.graph.execute import no_tf32
+    from tf2_tpu_torch.graph.init_params import init_params
+    from tf2_tpu_torch.kernels import dispatch
+    from tf2_tpu_torch.transform import load_artifact
+
+    t0 = time.time()
+    summary = {}
+    rng = np.random.default_rng(19)
+    images = {b: torch.as_tensor(rng.standard_normal((b, 224, 224, 3), dtype=np.float32)).cuda()
+              for b in (64, 1)}
+    with tempfile.TemporaryDirectory() as d:
+        # 1. ResNet-50 W4 at full width on the card; the replay's launches
+        out = f"{d}/resnet50"
+        kernels.reset_launch_counts()
+        report = run_cli(["--model", "resnet50", "--wbits", 4, "--batch", 4,
+                          "--calib-batches", 2, "--estimator", "percentile", "--out", out])
+        replay = {k: v for k, v in kernels.launch_counts().items() if v}
+        log(f"transform resnet50: bias_correct launched {replay}")
+        if any(not replay.get(k) for k in REPLAY_KERNELS):
+            raise RuntimeError(f"transform: bias_correct's replay launched {replay}, "
+                               f"expected each of {REPLAY_KERNELS}")
+        summary["resnet50"] = {"cli": report, "bias_correct_launches": replay}
+        # 2. its artifact (hashes verified) on the Engines
+        graph, params = load_artifact(out, verify_hashes=True)
+        s, default = _transform_engines("transform resnet50", graph, params, images, stats)
+        summary["resnet50"].update(s)
+        fg, fp = _folded_fp32("resnet50", 64, 224, 1000)
+        with torch.no_grad(), no_tf32():
+            y_fp = execute(fg.with_batch_size(64))(fp, image=images[64]).double()
+        y_q = default[64].run(image=images[64]).double()
+        rel = float(torch.linalg.norm(y_q - y_fp) / torch.linalg.norm(y_fp))
+        cos = float((y_q.flatten() @ y_fp.flatten())
+                    / (torch.linalg.norm(y_q) * torch.linalg.norm(y_fp)))
+        summary["resnet50"]["logits_vs_fp32"] = {"rel_err": rel, "cosine": cos}
+        log(f"transform resnet50 b64: logits against the folded FP32 forward: relative error "
+            f"{rel:.4f}, cosine {cos:.4f}; captured "
+            f"{summary['resnet50']['captured']['b64']['captured_ms']:.4f} ms/forward")
+        del default, fg, fp
+        # 3. card against CPU: the same CLI at image 64, batch 2
+        arts = {}
+        for platform in ("cpu", "cuda"):
+            summary[f"resnet50_64_{platform}"] = run_cli(
+                ["--model", "resnet50", "--wbits", 4, "--batch", 2, "--image", 64,
+                 "--out", f"{d}/r64_{platform}", "--platform", platform])
+            arts[platform] = load_artifact(f"{d}/r64_{platform}")
+        diff = compare_artifacts(arts["cuda"], arts["cpu"])
+        log(f"transform resnet50 at 64: card against CPU: weights equal, scales within "
+            f"{diff['scale_rel']:.3g}, es within {diff['es_rel']:.3g} relative, eb within "
+            f"{diff['eb_quanta']:.3g} quanta")
+        if diff["scale_rel"] > 1e-5 or diff["eb_quanta"] > 1e-3 or diff["es_rel"] > 3e-5:
+            raise RuntimeError(f"transform: card and CPU artifacts differ: {diff}")
+        summary["card_vs_cpu"] = diff
+        # 4. pruned
+        out = f"{d}/pruned"
+        summary["pruned"] = {"cli": run_cli(["--model", "resnet50", "--wbits", 4, "--prune", 0.3,
+                                              "--out", out])}
+        graph, params = load_artifact(out)
+        widths = sorted({int(v.shape[-1]) for k, v in params.items() if k.endswith((".wp",
+                                                                                   ".wq"))})
+        log(f"transform pruned: output widths {widths}")
+        engines, _ = make_engines(graph, params, {"unfused": {"block_fusion": False},
+                                                  "default": {}})
+        for label, engs in engines.items():
+            phase_kernels(engs, images, stats, timed=False)
+            kernels.reset_launch_counts()
+            y = engs[64].run(image=images[64])
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            if not bool(torch.isfinite(y).all()):
+                raise RuntimeError(f"transform pruned {label}: logits not finite")
+            summary["pruned"][label] = {"launches_b64": counts}
+            log(f"transform pruned {label}: every conv and GEMM node equals its plain "
+                f"version; launches {counts}")
+        summary["pruned"]["widths"] = widths
+        del engines
+        # 5. the other zoo models at their defaults
+        for name, extra in TRANSFORM_ZOO:
+            out = f"{d}/{name}"
+            rep = run_cli(["--model", name, "--calib-batches", 1, "--out", out, *extra])
+            graph, params = load_artifact(out)
+            x = torch.as_tensor(rng.standard_normal(tuple(graph.inputs["image"].shape),
+                                                    dtype=np.float32)).cuda()
+            eng = zoo_engine(graph, params)
+            kernels.reset_launch_counts()
+            y = eng.run(image=x)
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            dispatch.set_use_kernels(False)
+            try:
+                y_off = zoo_engine(graph, params).run(image=x)
+            finally:
+                dispatch.set_use_kernels(None)
+            if not counts or not torch.equal(y, y_off) or not bool(torch.isfinite(y).all()):
+                raise RuntimeError(f"transform {name}: outputs differ from "
+                                   f"set_use_kernels(False)'s, or no kernel ran ({counts})")
+            summary[name] = {"cli": rep, "launches": counts}
+            log(f"transform {name}: Engine on its kernels {counts} equals "
+                f"set_use_kernels(False)'s outputs {tuple(y.shape)}")
+    # 6. the f32 ops no zoo Engine runs, card against CPU
+    g = fp32_ops_graph(GraphBuilder, batch=2, image=112, dim=768, heads=12)
+    params = init_params(g, seed=1)
+    x = rng.standard_normal(tuple(g.inputs["image"].shape), dtype=np.float32)
+    envs = {}
+    for dev in ("cpu", "cuda"):
+        with torch.no_grad(), no_tf32():
+            _, env = execute(g, intermediates=True)(
+                {k: torch.as_tensor(v).to(dev) for k, v in params.items()},
+                image=torch.as_tensor(x).to(dev))
+        envs[dev] = env
+    worst = {n.name: float((envs["cuda"][n.name].cpu() - envs["cpu"][n.name]).abs().max()
+                           / envs["cpu"][n.name].abs().max()) for n in g.nodes}
+    log(f"transform fp32 ops: card against CPU, relative to each node's largest value: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    if max(worst.values()) > FP32_OPS_RTOL:
+        raise RuntimeError(f"transform fp32 ops: card and CPU differ: {worst}")
+    summary["fp32_ops"] = worst
+    summary["seconds"] = time.time() - t0
+    log(f"transform: phase 19 took {summary['seconds']:.1f} s")
+    return summary
+
+
 def main() -> int:
     t0 = time.time()
     smi = phase_card()
@@ -2116,6 +2370,7 @@ def main() -> int:
     zoo["ssd"] = phase_ssd(stats)
     zoo["vit_b16_cls_384"] = phase_vit384(stats)
     zoo["coverage"] = phase_coverage()
+    zoo["transform"] = phase_transform(stats)
     if not all(launches.values()):
         raise RuntimeError(f"kernels launched no time on their paths: {launches}")
     line = {"kernels": []}

@@ -23,6 +23,8 @@ qlrn.cu``), modelled in numpy on the CPU:
 The kernel itself is held against ``qlrn_plain`` on the card in
 tests/test_torch_cuda.py and chip_smoke.py.
 """
+import ctypes
+import ctypes.util
 import functools
 
 import jax
@@ -128,6 +130,49 @@ def test_sqrt_rn_is_correctly_rounded(lo, hi):
         t = buf[off:off + a.size]
         t.copy_(torch.as_tensor(a))
         np.testing.assert_array_equal(build.sqrt_rn(t).numpy(), want)
+
+
+def _sqrt_cases() -> tuple[torch.Tensor, np.ndarray]:
+    """f32 values over [2^-40, 2^40] and numpy's correctly rounded roots."""
+    rng = np.random.default_rng(40)
+    a = np.exp(rng.uniform(np.log(2.0 ** -40), np.log(2.0 ** 40), 300007)).astype(F32)
+    a[:3] = (0.0, 1.0, 4.0)
+    return torch.as_tensor(a), np.sqrt(a.astype(np.float64)).astype(F32)
+
+
+@pytest.mark.parametrize("threads", [1, 2, 8])
+def test_sqrt_rn_is_correctly_rounded_on_every_thread_count(threads):
+    """build.sqrt_rn at 1, 2 and 8 intra-op threads (the pool's threads
+    take the work of a tensor this long) gives the correctly rounded root."""
+    t, want = _sqrt_cases()
+    prev = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        np.testing.assert_array_equal(build.sqrt_rn(t).numpy(), want)
+    finally:
+        torch.set_num_threads(prev)
+
+
+@pytest.mark.parametrize("mode", [0x400, 0x800, 0xC00], ids=["down", "up", "toward_zero"])
+def test_sqrt_rn_is_correctly_rounded_in_every_rounding_mode(mode):
+    """With the thread's FP rounding mode set to a directed one (fesetround,
+    x86-64 values), a root taken in float64 and cast to f32 is off by one
+    ulp in about half the elements; build.sqrt_rn's exact check keeps every
+    root correctly rounded. One intra-op thread, so torch computes on the
+    thread whose mode is set; the mode is restored after."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    t, want = _sqrt_cases()
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    libm.fesetround(mode)
+    try:
+        naive = torch.sqrt(t.to(torch.float64)).to(torch.float32).numpy()
+        got = build.sqrt_rn(t).numpy()
+    finally:
+        libm.fesetround(0)
+        torch.set_num_threads(prev)
+    assert (naive != want).mean() > 0.3
+    np.testing.assert_array_equal(got, want)
 
 
 def _fast_075(z: np.ndarray, t: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -14,6 +14,10 @@ tests/test_torch_cuda.py.
   stem kernel's ``covers`` takes and its plan has no launch for (k 9, or
   cout 288): the Engine keeps the quantize and the stride-2 conv kernel,
   and ``qstem.fused_qstem`` takes the same two passes (``TWO_PASS``).
+- ``fp32_ops_graph``: the f32 ops no zoo Engine runs (``batch_norm``,
+  ``attention``, ``relu6``, ``sigmoid``, ``mul``, SAME and VALID
+  ``avgpool``), for ``chip_smoke.py`` phase 19 and
+  tests/test_torch_fp32_ops.py.
 """
 from __future__ import annotations
 
@@ -94,3 +98,26 @@ def stem_artifact(k: int, cout: int, batch: int = 2, image: int = 32, seed: int 
     fg, fp = fold_batch_norm(g, init_params(g, seed=seed))
     scales = dict.fromkeys(list(fg.inputs) + [n.name for n in fg.nodes], SYNTHETIC_ACT_SCALE)
     return quantize_graph(fg, fp, scales, QuantSpec(weight_bits=4, pot_candidates=5))
+
+
+def fp32_ops_graph(builder, batch: int = 2, image: int = 32, dim: int = 48, heads: int = 2,
+                   classes: int = 10):
+    """An f32 graph holding the ops no zoo Engine runs, which a graph still
+    carries before folding or in a model outside the zoo: a bias-free
+    stride-2 conv, ``batch_norm``, ``relu6``, a ``sigmoid`` gate and its
+    ``mul``, SAME ``avgpool`` at stride 1 and at stride 2 on an even size
+    (asymmetric pads), VALID ``avgpool``, the tokens through a whole
+    ``attention`` (dim, heads), ``flatten`` and the classifier; built with
+    ``builder``. ``image`` is a multiple of 8; the tokens are
+    (image / 8)^2."""
+    b = builder("fp32_ops")
+    x = b.input("image", (batch, image, image, 3))
+    x = b.conv2d(x, 3, dim, 3, stride=2, bias=False, name="conv")
+    x = b.raw("relu6", [b.batch_norm(x, dim, name="bn")], name="relu6")
+    x = b.raw("mul", [x, b.sigmoid(x, name="gate")], name="swish")
+    x = b.avgpool(x, 3, 1, padding="SAME", name="avg_same")
+    x = b.avgpool(x, 3, 2, padding="SAME", name="avg_same_s2")
+    x = b.avgpool(x, 2, 2, padding="VALID", name="avg_valid")
+    t = (image // 8) ** 2
+    x = b.attention(b.reshape(x, (batch, t, dim), batch_leading=True), dim, heads, name="attn")
+    return b.build(b.dense(b.flatten(x, name="flat"), t * dim, classes, name="head"))

@@ -13,12 +13,13 @@ registered with the reason (``host_sync``); ``host_syncs`` lists a graph's.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Mapping
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels import dispatch, qconv, qlrn
+from ..kernels import build, dispatch, qconv, qlrn
 from .ir import Graph, Node
 
 Params = Mapping[str, torch.Tensor]
@@ -45,26 +46,53 @@ def host_syncs(graph: Graph) -> list[str]:
     return [f"{n.name} ({n.op}): {_HOST_SYNC[n.op]}" for n in graph.nodes if n.op in _HOST_SYNC]
 
 
+# f32 ops whose result is not one correctly rounded step (sums in an order
+# the library chooses, tanh, exp, rsqrt): ``execute(..., wide=True)`` runs
+# them in float64 and rounds each output once to f32
+WIDE_OPS = frozenset({"conv2d", "dense", "layer_norm", "attention", "attention_core",
+                      "gelu", "sigmoid"})
+
+
+def _widen(v):
+    return v.to(torch.float64) if v.dtype == torch.float32 else v
+
+
 def execute(graph: Graph, intermediates: bool = False, plain: bool = False,
             plain_nodes: frozenset[str] = frozenset(),
-            library_nodes: frozenset[str] = frozenset()):
+            library_nodes: frozenset[str] = frozenset(), wide: bool = False):
     """Return fn(params, **inputs) -> outputs (a tuple if several). With
     ``intermediates=True`` it returns (outputs, dict of every value). The
     nodes named in ``plain_nodes`` run their plain versions, as every node
     does with ``plain=True``; those in ``library_nodes`` (unless plain)
-    their ``library`` route."""
+    their ``library`` route. With ``wide=True`` the ``WIDE_OPS`` nodes take
+    their f32 inputs and params in float64 and round their output once to
+    f32; every other f32 op is already a sequence of correctly rounded
+    steps (or an exact f64 sum). The f32 values then agree on the card and
+    the CPU, apart from an output whose f64 value lies within its own error
+    of an f32 rounding boundary (about K * 2^-29 of a K-term sum's
+    outputs): the Transform Kit's forwards (``transform/calibrate.py``)."""
 
     def fn(params: Params, **inputs):
         env: dict[str, torch.Tensor] = dict(inputs)
+        wide_params: dict[str, torch.Tensor] = {}
         for node in graph.nodes:
             if node.op not in _OP_IMPLS:
                 raise NotImplementedError(f"op {node.op!r} has no executor")
             impl, takes_plain = _OP_IMPLS[node.op]
             args = [env[i] for i in node.inputs]
+            widen = wide and node.op in WIDE_OPS
+            if widen:
+                args = [_widen(a) for a in args]
+                for p in node.params:
+                    if p not in wide_params:
+                        wide_params[p] = _widen(params[p])
             # per-node profiler scope: torch.profiler attributes host and
             # device time to "<op>:<node>"
             with torch.profiler.record_function(f"{node.op}:{node.name}"):
-                if node.name in library_nodes and not plain:
+                if widen:
+                    out = impl(node, wide_params, *args)
+                    env[node.name] = out.to(torch.float32) if out.dtype == torch.float64 else out
+                elif node.name in library_nodes and not plain:
                     env[node.name] = _LIBRARY[node.op](node, params, *args)
                 elif takes_plain:
                     env[node.name] = impl(node, params, *args,
@@ -76,6 +104,23 @@ def execute(graph: Graph, intermediates: bool = False, plain: bool = False,
         return (result, env) if intermediates else result
 
     return fn
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Within the block, cuDNN convolutions and cuBLAS matmuls take full f32
+    (on the card both may otherwise round their inputs to TF32, about 1e-3
+    relative); every setting is restored after. The f32 forwards of the
+    Transform Kit (calibration, bias correction) run inside it."""
+    prev = torch.get_float32_matmul_precision()
+    cudnn = torch.backends.cudnn
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 # f32 ops: the folded model before quantization (``activation_shapes`` runs
@@ -109,10 +154,21 @@ def _dense(node: Node, params, x):
     return out
 
 
+@register_op("batch_norm")
+def _batch_norm(node: Node, params, x):
+    """x * inv + (offset - mean * inv), inv = scale / sqrt(var + eps), the
+    square root correctly rounded (``build.sqrt_rn``) and divided into 1
+    (the reference's XLA ``rsqrt`` is not correctly rounded)."""
+    scale, offset, mean, var = (params[p].to(torch.float32) for p in node.params)
+    inv = scale * (build.scalar(1.0, x.device) / build.sqrt_rn(var + node.attrs.get("eps", 1e-5)))
+    return (x.to(torch.float32) * inv + (offset - mean * inv)).to(x.dtype)
+
+
 @register_op("layer_norm")
 def _layer_norm(node: Node, params, x):
-    scale, offset = (params[p].to(torch.float32) for p in node.params)
-    xf = x.to(torch.float32)
+    """In f32, or in float64 for a float64 x (``execute(wide=True)``)."""
+    xf = x if x.dtype == torch.float64 else x.to(torch.float32)
+    scale, offset = (params[p].to(xf.dtype) for p in node.params)
     mu = xf.mean(dim=-1, keepdim=True)
     var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + node.attrs.get("eps", 1e-6)) * scale
@@ -133,6 +189,15 @@ def _attention_core(node: Node, params, qkv):
     return out.transpose(1, 2).reshape(n, t, dim).to(qkv.dtype)
 
 
+@register_op("attention")
+def _attention(node: Node, params, x):
+    """Multi-head self-attention with its projections: x @ wqkv + bqkv, the
+    attention core, then @ wo + bo."""
+    wqkv, bqkv, wo, bo = (params[p].to(x.dtype) for p in node.params)
+    out = _attention_core(node, params, torch.matmul(x, wqkv) + bqkv)
+    return torch.matmul(out, wo) + bo
+
+
 @register_op("bias_add")
 def _bias_add(node: Node, params, x):
     return x + params[node.params[0]].to(x.dtype)
@@ -143,6 +208,16 @@ def _relu(node, params, x):
     return torch.relu(x)
 
 
+@register_op("relu6")
+def _relu6(node, params, x):
+    return torch.clamp(x, 0, 6)
+
+
+@register_op("sigmoid")
+def _sigmoid(node, params, x):
+    return torch.sigmoid(x)
+
+
 @register_op("gelu")
 def _gelu(node, params, x):
     return dispatch.gelu_tanh(x)
@@ -151,6 +226,11 @@ def _gelu(node, params, x):
 @register_op("add")
 def _add(node, params, a, b):
     return a + b
+
+
+@register_op("mul")
+def _mul(node, params, a, b):
+    return a * b
 
 
 @register_op("reshape")
@@ -230,6 +310,32 @@ def _maxpool(node: Node, params, x):
             v = xp[:, dy:dy + sh * (oh - 1) + 1:sh, dx:dx + sw * (ow - 1) + 1:sw, :]
             out = v if out is None else torch.maximum(out, v)
     return out.contiguous()
+
+
+@register_op("avgpool")
+def _avgpool(node: Node, params, x):
+    """Window mean with TF padding, padded explicitly (it can be
+    asymmetric): the window sum in float64 rounded once to f32, divided by
+    the count of the window's elements inside the input (a SAME window at
+    the border counts fewer), a true f32 division on either device."""
+    wh, ww = node.attrs["window"]
+    sh, sw = node.attrs["strides"]
+    b, h, w, c = x.shape
+    (ph0, ph1), (pw0, pw1) = qconv.resolve_pads(
+        node.attrs.get("padding", "VALID"), wh, ww, sh, sw, h, w)
+    oh = qconv.out_size(h, wh, sh, ph0, ph1)
+    ow = qconv.out_size(w, ww, sw, pw0, pw1)
+    xp = F.pad(x.to(torch.float64), (0, 0, pw0, pw1, ph0, ph1))
+    ones = F.pad(torch.ones(1, h, w, 1, dtype=torch.float64, device=x.device),
+                 (0, 0, pw0, pw1, ph0, ph1))
+    total = cnt = None
+    for dy in range(wh):
+        for dx in range(ww):
+            win = (slice(None), slice(dy, dy + sh * (oh - 1) + 1, sh),
+                   slice(dx, dx + sw * (ow - 1) + 1, sw))
+            total = xp[win] if total is None else total + xp[win]
+            cnt = ones[win] if cnt is None else cnt + ones[win]
+    return (total.to(torch.float32) / cnt.to(torch.float32)).to(x.dtype)
 
 
 @register_op("global_avgpool")

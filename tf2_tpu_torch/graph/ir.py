@@ -281,11 +281,24 @@ class GraphBuilder:
         params = [self._param(f"{nm}.scale", (c,)), self._param(f"{nm}.offset", (c,))]
         return self.raw("layer_norm", [x], params, name=nm, eps=eps)
 
+    def attention(self, x: str, dim: int, heads: int, name: str | None = None) -> str:
+        nm = self._fresh("attention", name)
+        params = [
+            self._param(f"{nm}.wqkv", (dim, 3 * dim)),
+            self._param(f"{nm}.bqkv", (3 * dim,)),
+            self._param(f"{nm}.wo", (dim, dim)),
+            self._param(f"{nm}.bo", (dim,)),
+        ]
+        return self.raw("attention", [x], params, name=nm, heads=heads, dim=dim)
+
     def relu(self, x: str, name: str | None = None) -> str:
         return self.raw("relu", [x], name=name)
 
     def gelu(self, x: str, name: str | None = None) -> str:
         return self.raw("gelu", [x], name=name)
+
+    def sigmoid(self, x: str, name: str | None = None) -> str:
+        return self.raw("sigmoid", [x], name=name)
 
     def add(self, a: str, b: str, name: str | None = None) -> str:
         return self.raw("add", [a, b], name=name)
@@ -293,6 +306,11 @@ class GraphBuilder:
     def maxpool(self, x: str, window: int, stride: int,
                 padding: str = "VALID", name: str | None = None) -> str:
         return self.raw("maxpool", [x], name=name, window=[window, window],
+                        strides=[stride, stride], padding=padding)
+
+    def avgpool(self, x: str, window: int, stride: int,
+                padding: str = "VALID", name: str | None = None) -> str:
+        return self.raw("avgpool", [x], name=name, window=[window, window],
                         strides=[stride, stride], padding=padding)
 
     def global_avgpool(self, x: str, name: str | None = None) -> str:
@@ -305,6 +323,9 @@ class GraphBuilder:
 
     def concat(self, xs: Iterable[str], axis: int = -1, name: str | None = None) -> str:
         return self.raw("concat", list(xs), name=name, axis=axis)
+
+    def flatten(self, x: str, name: str | None = None) -> str:
+        return self.raw("flatten", [x], name=name)
 
     def reshape(self, x: str, shape: Iterable[int], name: str | None = None,
                 batch_leading: bool | None = None) -> str:

@@ -91,12 +91,25 @@ def f32(value: float) -> float:
 
 def sqrt_rn(t: torch.Tensor) -> torch.Tensor:
     """The f32 square root of an f32 tensor, correctly rounded on every
-    device, as the kernels' ``__fsqrt_rn``: taken in float64 and rounded
-    once to f32, which for a square root gives the correctly rounded f32
-    (53 >= 2 * 24 + 2 bits). ``torch.sqrt`` on f32 is not correctly rounded
-    in every CPU build (some take a vectorized approximation, whose result
-    also varies with the tensor's address)."""
-    return torch.sqrt(t.to(torch.float64)).to(torch.float32)
+    device and thread, as the kernels' ``__fsqrt_rn``, for every normal or
+    zero input. ``torch.sqrt`` on f32 is not correctly rounded in every CPU
+    build (some take a vectorized approximation, whose result also varies
+    with the tensor's address). The root is taken in float64 and rounded to
+    f32 (correctly rounded under round-to-nearest: 53 >= 2 * 24 + 2 bits),
+    then checked in exact arithmetic, so a thread whose FP control state
+    rounds otherwise cannot move it: the correctly rounded r is the f32
+    whose two midpoints with its neighbours bracket sqrt(x), m_lo^2 <= x <=
+    m_hi^2 (never equal for an f32 x), and each midpoint (25 bits) and its
+    square (50 bits) are exact in float64 in any rounding mode. A first
+    guess at most one ulp off then steps once to its neighbour."""
+    x = t.to(torch.float64)
+    r = torch.sqrt(x).to(torch.float32)
+    lo = torch.nextafter(r, torch.zeros_like(r))
+    hi = torch.nextafter(r, torch.full_like(r, float("inf")))
+    r64 = r.to(torch.float64)
+    m_lo = (lo.to(torch.float64) + r64) * 0.5
+    m_hi = (r64 + hi.to(torch.float64)) * 0.5
+    return torch.where(x < m_lo * m_lo, lo, torch.where(x > m_hi * m_hi, hi, r))
 
 
 @functools.lru_cache(maxsize=256)

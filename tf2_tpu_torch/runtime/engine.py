@@ -143,7 +143,7 @@ class Limits:
         return cls(qlrn.max_channels(), qblocks.SMEM_LIMIT)
 
 
-def _resolve_device(device: str | torch.device) -> torch.device:
+def resolve_device(device: str | torch.device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is available")
@@ -222,7 +222,7 @@ class Engine:
                  block_fusion: bool = True, merge_1x1: bool = False,
                  phase_stem: bool = False, optimize: bool = False,
                  donate_inputs: bool = False):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         graph.validate()
         routes = {}
         if predecode:

@@ -99,6 +99,11 @@ def load_artifact(path: str, verify_hashes: bool = True
     return graph, params
 
 
+def save_quantized(path: str, art) -> None:
+    """Write a ``QuantizedArtifact`` as an artifact directory."""
+    save_artifact(path, art.graph, art.params)
+
+
 def from_reference(graph_json: str, params: dict) -> tuple[Graph, dict[str, np.ndarray]]:
     """Build the port's Graph from a ``tf2_tpu`` graph's JSON and take its
     params (any array-likes) as numpy arrays, unchanged."""

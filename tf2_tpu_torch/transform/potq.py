@@ -52,10 +52,20 @@ def pot_encode_from_int8(q) -> np.ndarray:
     return (m | (s << 3)).astype(np.uint8)
 
 
+def pot_round_mag(a):
+    """Nonnegative magnitudes -> the index (0..7) of the MSE-nearest PoT
+    magnitude (index k > 0 is 2^(k-1)); a midpoint goes to the lower one.
+    Takes a numpy array or a torch tensor and returns the same kind."""
+    if isinstance(a, torch.Tensor):
+        mids = torch.as_tensor(_POT_MIDPOINTS, device=a.device).to(a.dtype)
+        return torch.searchsorted(mids, a.contiguous()).to(torch.int32)
+    return np.searchsorted(_POT_MIDPOINTS, np.asarray(a)).astype(np.int32)
+
+
 def pot_quantize_with_scale(w: np.ndarray, scale: np.ndarray) -> np.ndarray:
     """Quantize ``w`` (K, C) with per-channel ``scale`` (C,) -> int8 PoT,
     each magnitude rounded to the MSE-nearest power of two."""
-    idx = np.searchsorted(_POT_MIDPOINTS, np.abs(w) / scale).astype(np.int32)
+    idx = pot_round_mag(np.abs(w) / scale)
     return (np.sign(w) * POT_MAGS[idx]).astype(np.int8)
 
 
@@ -121,3 +131,12 @@ def unpack_codes(packed: torch.Tensor, k: int) -> torch.Tensor:
 def unpack_codes_np(packed: np.ndarray, k: int) -> np.ndarray:
     """numpy mirror of unpack_codes (host-side weight prep)."""
     return np.concatenate([packed & 0xF, (packed >> 4) & 0xF], axis=0)[:k].astype(np.uint8)
+
+
+def quantization_snr_db(w, w_hat) -> float:
+    """10 log10(sum w^2 / sum (w - w_hat)^2), in float64; numpy arrays or
+    torch tensors."""
+    w = np.asarray(w.detach().cpu() if isinstance(w, torch.Tensor) else w, np.float64)
+    w_hat = np.asarray(w_hat.detach().cpu() if isinstance(w_hat, torch.Tensor) else w_hat,
+                       np.float64)
+    return float(10.0 * np.log10(np.sum(np.square(w)) / (np.sum(np.square(w - w_hat)) + 1e-30)))

@@ -38,13 +38,20 @@ class QuantSpec:
     """Per-model quantization policy."""
     weight_bits: int = 4              # 4 => PoT codes; 8 => linear int8
     first_last_w8: bool = True        # keep first/last layers at W8
+    act_estimator: str = "percentile" # calibrate's estimator (pipeline.py)
     pot_candidates: int = 33
+    bias_correct: bool = True         # fold the mean quantization error of
+                                      # each conv/dense into its eb
+                                      # (transform/bias_correct.py)
     int8_residual: bool = True        # layer_norm, gelu, bias_add and the
                                       # class token on int8 (qlayernorm,
                                       # qgelu, qbias_add) instead of f32
                                       # behind dequantize/quantize
     fold_residual: bool = True        # fold a residual add into the qdense
                                       # epilogue of its other input
+    equalize_concat: bool = True      # put every single-consumer concat
+                                      # input on the concat's scale, so the
+                                      # qconcat is a byte copy
 
 
 @dataclasses.dataclass
@@ -106,13 +113,12 @@ def quantize_graph(graph: Graph, params: Mapping[str, np.ndarray],
     spec = spec or QuantSpec()
     graph.validate()
     consumers = graph.consumers()
-    # every single-consumer concat input goes on the concat's own scale
-    # (tf2_tpu's QuantSpec.equalize_concat, on by default there): the
-    # branch producer's epilogue then writes int8 on the concat's grid and
-    # the qconcat is a byte copy
+    # with ``equalize_concat`` every single-consumer concat input goes on
+    # the concat's own scale: the branch producer's epilogue then writes
+    # int8 on the concat's grid and the qconcat is a byte copy
     act_scales = dict(act_scales)
     for node in graph.nodes:
-        if node.op != "concat" or node.name not in act_scales:
+        if not spec.equalize_concat or node.op != "concat" or node.name not in act_scales:
             continue
         for i in node.inputs:
             if i in act_scales and len(consumers.get(i, [])) == 1:
