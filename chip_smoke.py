@@ -205,12 +205,37 @@ Phases, in order; any failure exits non-zero before the last line:
              relu6, sigmoid, mul, SAME and VALID avgpool; dim 768, 12 heads,
              196 tokens) on the card against the CPU, TF32 off, every node
              within 1e-5 of its largest value. The phase's seconds printed.
+20. serving (run after phase 18, on phase 16's built default ResNet-50
+             Engines) the port's serving path (tf2_tpu_torch/serve/,
+             tf2_tpu_torch/utils/preproc.py): native/preproc.cpp built with
+             g++ into tf2_tpu_torch/utils/build/, against the numpy path at
+             the reference test's cases and bars (f32 within 1e-4 at 37x53 ->
+             32; int8 within one quantum and over 99% exact at 64x64 -> 48)
+             and on 64 random 256x256 uint8 images to 224x224 (int8 at that
+             bar, f32 within preproc.f32_error_bound); PrefetchLoader (depth 2)
+             feeding four such batches to the built b64 Engine, each forward
+             equal to the eager one; InferenceServer(batch 64) + serve_http
+             (port 0): 256 requests from 32 threads and 16 over POST
+             /predict, each response equal bit for bit to its row of a
+             direct forward, start()'s build launching twice a forward's
+             kernels and the replays none, /healthz, /stats (requests,
+             captured) and 400 on a malformed body; InferenceServer(batch
+             1): 64 sequential requests, each equal; SSD (256x256, b8) served
+             uncaptured, every (100, 6) detection row equal, its launches
+             those of its served batches; serving_load at b64 (24 clients, 4
+             s) and b1 (4 clients, 2 s), engine_steady donate on and off (2
+             s each, on phase 16's donated and default b64 Engines), the b64
+             time split (serving_bench.time_split); the
+             measured peaks (bench/peaks.py) beside the data sheet and
+             ResNet-50 b64's roofline (bench/roofline.py) with both, its
+             sol_fraction against phase 16's built ms; native/libtf2preproc.so
+             unchanged. Every number printed with the card.
 Every zoo Engine on the card (phases 3-14) must have empty plain_nodes:
 the coverage plan sends none of the zoo's nodes to a plain version.
 Launch counts are in the order (qmatmul_pot4, qmatmul_int8, qconv_s1,
 qconv_s2, qblockchain, qlrn, qattention, qconv_s2x1, qstem). Prints the
 headline bench's line, the summary line (every path's numbers, the stem
-routes, the captured forwards, the routes, the run's wall time),
+routes, the captured forwards, the routes, serving, the run's wall time),
 the kernels JSON line (launches from the Engine each kernel was timed on:
 the conv and GEMM kernels' from phase 5's unfused Engine, which runs every
 conv (the default's chains take the 3x3s and most GEMMs, phase 7),
@@ -1905,10 +1930,12 @@ def phase_captured(label, engines, eager, seed: int):
 def phase_donation(graph, params, engines):
     """Phase 16, ResNet-50: Engine(donate_inputs=True), built, at batch 64
     and 1: outputs equal the built Engine's without donation on three
-    seeded inputs, each donated tensor's storage freed after its call."""
+    seeded inputs, each donated tensor's storage freed after its call.
+    Returns the built donated Engine at batch 64 (phase 20 drives it)."""
     from tf2_tpu_torch.runtime import Engine
 
     rng = np.random.default_rng(16)
+    kept = None
     for b, ref in engines.items():
         shape = tuple(ref.graph.inputs["image"].shape)
         xs = [torch.as_tensor(rng.standard_normal(shape, dtype=np.float32)).cuda()
@@ -1920,8 +1947,11 @@ def phase_donation(graph, params, engines):
             mine = x.clone()
             if not torch.equal(eng.run(image=mine), w) or mine.untyped_storage().nbytes():
                 raise RuntimeError(f"donated Engine b{b}: outputs differ or the input was kept")
+        if b == 64:
+            kept = eng
         del eng
     log("resnet50: the donated Engines equal the others at b64 and b1, inputs freed")
+    return kept
 
 
 def _forced_engine(graph, params, route):
@@ -2308,6 +2338,296 @@ def phase_transform(stats) -> dict:
     return summary
 
 
+# phase 20: serving
+SERVE_IMAGES = 256       # through the b64 server's threads, in 4 loader batches
+SERVE_HTTP = 16          # more through POST /predict
+SERVE_CLIENTS = 32
+SERVE_B1 = 64            # sequential requests to the b1 server
+SSD_SERVE_BATCH = 8
+SSD_SERVE_IMAGE = 256
+SERVE_WAIT_S = 120
+# native preprocessing against its numpy reference: the reference test's
+# bars (tests/test_preproc.py) at its cases: f32 within 1e-4 (3x37x53 -> 32);
+# int8 within one quantum, over 99% exact (2x64x64 -> 48, scale 0.02); at
+# the serving size (256x256 -> 224) int8 at the same bar and f32 within
+# preproc.f32_error_bound (the library's float32 sample coordinates: 4.1e-4
+# at 256x256, where 1e-4 does not hold for the reference's own library
+# either, ROADMAP Queue 3)
+PREPROC_F32_ATOL = 1e-4
+PREPROC_I8_EXACT = 0.99
+PREPROC_I8_SCALE = 0.02
+
+
+def _sha256(path) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _rows_equal(label, got, want) -> None:
+    """Each served response equal bit for bit to its row of a direct
+    forward."""
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if not np.array_equal(g, w)]
+    if len(got) != len(want) or bad:
+        raise RuntimeError(f"serving {label}: {len(bad)} of {len(want)} responses differ from "
+                           f"the direct forward (first {bad[:5]})")
+
+
+def _http(url, body=None, timeout=SERVE_WAIT_S):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.load(r)
+
+
+def phase_serving(engines, donated, art, captured, smi: str) -> dict:
+    """Phase 20, after phase 18 on phase 16's built default ResNet-50
+    Engines (``engines`` by batch, ``donated`` its donated b64 Engine;
+    ``captured`` phase 16's summary): native
+    preprocessing, the prefetch loader, the continuous batcher and the HTTP
+    server on the card, every served response equal bit for bit to its row
+    of a direct forward; SSD served uncaptured; the serving and engine
+    benches, the b64 time split, the measured peaks and the roofline.
+    Returns the summary."""
+    import io
+    import threading
+    import urllib.error
+    from pathlib import Path
+
+    from tf2_tpu_torch import kernels
+    from tf2_tpu_torch.bench import peaks, roofline, serving_bench
+    from tf2_tpu_torch.graph import execute
+    from tf2_tpu_torch.models import synthetic_quantized
+    from tf2_tpu_torch.serve import InferenceServer, serve_http
+    from tf2_tpu_torch.serve.loader import PrefetchLoader
+    from tf2_tpu_torch.utils import preproc
+
+    t0 = time.time()
+    summary = {"card": smi}
+    shipped = Path(__file__).resolve().with_name("native") / "libtf2preproc.so"
+    shipped_sha = _sha256(shipped)
+    rng = np.random.default_rng(20)
+    graph, params = art
+    eng64, eng1 = engines[64], engines[1]
+    image = eng64.graph.inputs["image"].shape[1]
+    # (a) the native library, built from the source, against numpy
+    t = time.time()
+    lib = preproc.build()
+    build_s = time.time() - t
+
+    def against_numpy(batch, size):
+        f32 = preproc.preprocess(batch, size)
+        ref = preproc.preprocess(batch, size, force_numpy=True)
+        err = float(np.abs(f32 - ref).max())
+        # the numpy path's int8 is its f32 quantized (preproc.preprocess)
+        ref_i8 = np.clip(np.round(ref / PREPROC_I8_SCALE), -127, 127).astype(np.int8)
+        diff = np.abs(preproc.preprocess(batch, size, quant_scale=PREPROC_I8_SCALE).astype(int)
+                      - ref_i8.astype(int))
+        return f32, {"f32_max_abs_err": err, "i8_max_diff": int(diff.max()),
+                     "i8_exact_share": float((diff == 0).mean())}
+
+    _, ref_f32 = against_numpy(rng.integers(0, 256, (3, 37, 53, 3), dtype=np.uint8), 32)
+    _, ref_i8 = against_numpy(rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8), 48)
+    raw = rng.integers(0, 256, (SERVE_IMAGES + SERVE_HTTP, 256, 256, 3), dtype=np.uint8)
+    f32, served = against_numpy(raw[:64], image)
+    bound = preproc.f32_error_bound(256, 256)
+    summary["preproc"] = {"library": lib.name, "build_s": build_s, "f32_bound": bound,
+                          "reference_cases": {"37x53->32": ref_f32, "64x64->48": ref_i8},
+                          f"256x256->{image}": served}
+    log(f"serving ({smi}): {lib.name} built in {build_s:.1f} s; the reference test's cases: "
+        f"f32 within {ref_f32['f32_max_abs_err']:.3g}, int8 max diff {ref_i8['i8_max_diff']} "
+        f"exact {ref_i8['i8_exact_share']:.6f}; 64 256x256 images to {image}: f32 within "
+        f"{served['f32_max_abs_err']:.3g} (bound {bound:.3g}), int8 max diff "
+        f"{served['i8_max_diff']}, exact {served['i8_exact_share']:.6f}")
+    if (ref_f32["f32_max_abs_err"] > PREPROC_F32_ATOL or served["f32_max_abs_err"] > bound
+            or max(ref_i8["i8_max_diff"], served["i8_max_diff"]) > 1
+            or min(ref_i8["i8_exact_share"], served["i8_exact_share"]) <= PREPROC_I8_EXACT):
+        raise RuntimeError(f"serving: native preprocessing off its numpy reference: "
+                           f"{summary['preproc']}")
+    # (b) the prefetch loader feeding the built b64 Engine
+    eager = execute(eng64.graph, plain_nodes=eng64.plain_nodes, library_nodes=eng64.library_nodes)
+    loader = PrefetchLoader([raw[i:i + 64] for i in range(0, SERVE_IMAGES, 64)], depth=2,
+                            out_size=image).start()
+    batches, direct = [], []
+    while (batch := loader.get(timeout=SERVE_WAIT_S)) is not None:
+        x = torch.from_numpy(batch).cuda()
+        y = eng64.run(image=x)
+        if not torch.equal(y, eager(eng64.params, image=x)):
+            raise RuntimeError("serving: a loader batch's built forward differs from the eager one")
+        batches.append(batch)
+        direct.append(y.cpu().numpy())
+    if len(batches) != SERVE_IMAGES // 64 or not np.array_equal(batches[0], f32):
+        raise RuntimeError("serving: the loader's batches are not the preprocessed images")
+    images, direct = np.concatenate(batches), np.concatenate(direct)
+    log(f"serving ({smi}): PrefetchLoader (depth 2) fed {len(batches)} batches of 64 to the "
+        "built b64 Engine, each forward equal to the eager one")
+    # (c) the b64 server: 32 client threads and HTTP
+    http_images = preproc.preprocess(raw[SERVE_IMAGES:], image)
+    http_direct = eng64.run(image=torch.from_numpy(np.concatenate(
+        [http_images, images[:64 - SERVE_HTTP]])).cuda())[:SERVE_HTTP].cpu().numpy()
+    kernels.reset_launch_counts()
+    srv = InferenceServer(eng64, 64).start()
+    start_counts = kernels.launch_counts()
+    want = {k: 2 * v for k, v in routed_launches(eng64, FUSED_LAUNCHES, graph).items()}
+    if start_counts != want or not eng64.built:
+        raise RuntimeError(f"serving b64: start() launched {start_counts}, expected {want} "
+                           "(the build's warm-up and capture)")
+    httpd = serve_http(srv, port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    got, errors = {}, []
+
+    def client(k):
+        try:
+            for i in range(k, SERVE_IMAGES, SERVE_CLIENTS):
+                got[i] = srv.predict(images[i], timeout=SERVE_WAIT_S)
+        except Exception as e:  # raised below: the phase fails
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+        t = time.time()
+        for th in threads:
+            th.start()
+        over_http = []
+        for x in http_images:
+            buf = io.BytesIO()
+            np.save(buf, x)
+            over_http.append(np.asarray(_http(f"{url}/predict", buf.getvalue())["output"],
+                                        np.float32))
+        for th in threads:
+            th.join(timeout=SERVE_WAIT_S)
+        served_s = time.time() - t
+        if errors or any(th.is_alive() for th in threads):
+            raise RuntimeError(f"serving b64: a client failed or hung: {errors[:1]}")
+        health = _http(f"{url}/healthz")
+        stats = _http(f"{url}/stats")
+        try:
+            _http(f"{url}/predict", b"garbage")
+            bad_status = 200
+        except urllib.error.HTTPError as e:
+            bad_status = e.code
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop()
+    _rows_equal("b64 threads", [got[i] for i in range(SERVE_IMAGES)], direct)
+    _rows_equal("b64 HTTP", over_http, http_direct)
+    if kernels.launch_counts() != start_counts:
+        raise RuntimeError("serving b64: a served replay went through a wrapper")
+    if (not health.get("ok") or stats["requests"] != SERVE_IMAGES + SERVE_HTTP
+            or stats["captured"] is not True or bad_status != 400):
+        raise RuntimeError(f"serving b64: healthz {health}, stats {stats}, malformed body "
+                           f"answered {bad_status}")
+    summary["b64"] = {"requests": stats["requests"], "batches": stats["batches"],
+                      "avg_occupancy": stats["avg_occupancy"], "seconds": served_s,
+                      "start_launches": start_counts}
+    log(f"serving b64 ({smi}): {SERVE_IMAGES} requests from {SERVE_CLIENTS} threads and "
+        f"{SERVE_HTTP} over HTTP in {stats['batches']} batches (occupancy "
+        f"{stats['avg_occupancy']:.3f}), each equal to its row of a direct forward; "
+        f"start() launched {start_counts}; /healthz, /stats, 400 on a malformed body")
+    # (d) the b1 server, sequential requests
+    b1_direct = [eng1.run(image=torch.from_numpy(images[i:i + 1]).cuda())[0].cpu().numpy()
+                 for i in range(SERVE_B1)]
+    srv = InferenceServer(eng1, 1).start()
+    try:
+        b1_got = [srv.predict(images[i], timeout=SERVE_WAIT_S) for i in range(SERVE_B1)]
+    finally:
+        srv.stop()
+    _rows_equal("b1", b1_got, b1_direct)
+    summary["b1"] = {"requests": SERVE_B1, "equal_to_b64_rows": bool(all(
+        np.array_equal(b1_direct[i], direct[i]) for i in range(SERVE_B1)))}
+    log(f"serving b1 ({smi}): {SERVE_B1} sequential requests, each equal to the b1 Engine's "
+        f"direct forward (equal to the b64 rows too: {summary['b1']['equal_to_b64_rows']})")
+    # (e) SSD: its NMS waits on the host, so it is served uncaptured
+    ssd = synthetic_quantized("ssd", seed=0, batch=SSD_SERVE_BATCH, image=SSD_SERVE_IMAGE,
+                              classes=21)
+    ssd_eng = zoo_engine(ssd.graph, ssd.params)
+    xs = rng.standard_normal((2 * SSD_SERVE_BATCH, SSD_SERVE_IMAGE, SSD_SERVE_IMAGE, 3),
+                             dtype=np.float32)
+    ssd_direct = np.concatenate([ssd_eng.run(image=torch.from_numpy(xs[i:i + SSD_SERVE_BATCH])
+                                             .cuda()).cpu().numpy()
+                                 for i in range(0, len(xs), SSD_SERVE_BATCH)])
+    kernels.reset_launch_counts()
+    srv = InferenceServer(ssd_eng, SSD_SERVE_BATCH).start()
+    ssd_got = {}
+
+    def ssd_client(k):
+        for i in range(k, len(xs), 4):
+            ssd_got[i] = srv.predict(xs[i], timeout=SERVE_WAIT_S)
+
+    try:
+        threads = [threading.Thread(target=ssd_client, args=(k,)) for k in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=SERVE_WAIT_S)
+        ssd_stats = srv.stats()
+    finally:
+        srv.stop()
+    if len(ssd_got) != len(xs) or ssd_stats["captured"] or not ssd_stats["host_syncs"]:
+        raise RuntimeError(f"serving ssd: {len(ssd_got)} of {len(xs)} served, stats {ssd_stats}")
+    _rows_equal("ssd", [ssd_got[i] for i in range(len(xs))], ssd_direct)
+    per_forward = routed_launches(ssd_eng, SSD_LAUNCHES, ssd.graph)
+    ssd_counts = kernels.launch_counts()
+    if ssd_counts != {k: ssd_stats["batches"] * v for k, v in per_forward.items()}:
+        raise RuntimeError(f"serving ssd: launches {ssd_counts} over {ssd_stats['batches']} "
+                           f"batches, expected {per_forward} a forward")
+    summary["ssd"] = {"requests": len(xs), "batches": ssd_stats["batches"],
+                      "captured": False, "host_syncs": ssd_stats["host_syncs"],
+                      "launches": ssd_counts}
+    log(f"serving ssd ({smi}): b{SSD_SERVE_BATCH} served uncaptured ({ssd_stats['host_syncs']}), "
+        f"{len(xs)} (100, 6) detection rows equal to the direct forward; launches {ssd_counts}")
+    del ssd_eng, srv
+    # (f) the serving and engine benches, the time split
+    bench = {"serving_b64": serving_bench.serving_load(graph, params, 64, 4.0, clients=24,
+                                                       engine=eng64),
+             "serving_b1": serving_bench.serving_load(graph, params, 1, 2.0, clients=4,
+                                                      engine=eng1)}
+    for donate, eng in ((True, donated), (False, eng64)):
+        bench[f"engine_steady_{'donate' if donate else 'nodonate'}"] = \
+            serving_bench.engine_steady(graph, params, 64, 2.0, donate, engine=eng)
+    bench["split_b64"] = serving_bench.time_split(eng64, images[:64])
+    summary["bench"] = bench
+    for b in ("b64", "b1"):
+        r = bench[f"serving_{b}"]
+        log(f"serving_load {b} ({smi}): {r['img_per_s']:.1f} img/s, p50 {r['p50_ms']:.3f} "
+            f"p95 {r['p95_ms']:.3f} p99 {r['p99_ms']:.3f} ms, occupancy "
+            f"{r['avg_occupancy']:.3f}, {r['clients']} clients, captured {r['captured']}")
+    log(f"engine_steady b64 ({smi}): donate {bench['engine_steady_donate']['img_per_s']:.1f}, "
+        f"no donate {bench['engine_steady_nodonate']['img_per_s']:.1f} img/s")
+    split = bench["split_b64"]
+    log(f"time split b64 ({smi}): " + ", ".join(
+        f"{k} {split[f'{k}_ms']:.3f}" for k in ("assemble", "copy_in", "replay", "copy_out",
+                                                 "plumbing")) + f" ms (total "
+        f"{split['total_ms']:.3f}; input {split['input_mb']:.1f} MB)")
+    # (g) the measured peaks and the roofline of ResNet-50 b64
+    measured = peaks.measure()
+    roof = {}
+    for label, pk in (("datasheet", roofline.DATASHEET),
+                      ("measured", roofline.measured_peaks(measured, "chip_smoke"))):
+        r = roofline.analyze(graph.with_batch_size(64), peaks=pk)
+        roof[label] = {k: v for k, v in r.items() if k != "layers"}
+        roof[label]["sol_fraction"] = r["sol_ms"] / captured["b64"]["captured_ms"]
+    summary["peaks"], summary["roofline"] = measured, roof
+    log(f"peaks ({smi}): int8 {measured['int8_tops']:.1f} TOP/s (data sheet 1979; _int_mm with "
+        f"B row-major {measured['int8_tops_row_major_b']:.1f}, column-major "
+        f"{measured['int8_tops_col_major_b']:.1f}), bf16 "
+        f"{measured['bf16_tflops']:.1f} TFLOP/s (989), HBM 1r1w "
+        f"{measured['hbm_1r1w_gbps']:.1f}, 2r1w {measured['hbm_2r1w_gbps']:.1f}, read "
+        f"{measured['hbm_read_sum_gbps']:.1f} GB/s (3350)")
+    log(f"roofline resnet50 b64 ({smi}): sol {roof['datasheet']['sol_ms']:.4f} ms (data sheet), "
+        f"{roof['measured']['sol_ms']:.4f} ms (measured), sol_fraction "
+        f"{roof['datasheet']['sol_fraction']:.4f} / {roof['measured']['sol_fraction']:.4f} of "
+        f"the built {captured['b64']['captured_ms']:.4f} ms")
+    if _sha256(shipped) != shipped_sha:
+        raise RuntimeError("serving: native/libtf2preproc.so changed")
+    summary["seconds"] = time.time() - t0
+    log(f"serving: phase 20 took {summary['seconds']:.1f} s")
+    return summary
+
+
 def main() -> int:
     t0 = time.time()
     smi = phase_card()
@@ -2350,10 +2670,12 @@ def main() -> int:
         "default": phase_captured("resnet50", engines["default"], summary, seed=16),
         "block_fusion=False": phase_captured("resnet50 block_fusion=False", engines["unfused"],
                                              unfused, seed=17)}
-    phase_donation(*art, engines["default"])
+    donated = phase_donation(*art, engines["default"])
     summary["routing"] = phase_routing("resnet50", *art, engines["default"], images)
     headline_line = phase_headline(engines["default"], art, images[64], smi)
-    del engines, cpu_engines, plain_envs, fused_envs, envs, art
+    summary["serving"] = phase_serving(engines["default"], donated, art,
+                                       summary["captured"]["default"], smi)
+    del engines, cpu_engines, plain_envs, fused_envs, envs, art, donated
     zoo = {}
     for name in ZOO_LAUNCHES:
         zoo_launches, zoo[name] = phase_zoo(name, images, stats)

@@ -1074,6 +1074,7 @@ def test_tune_graph_and_validate_routes(cuda, tmp_path):
 
     art = _small_resnet()
     autotune.set_table_path(str(tmp_path / "t.json"))
+    autotune.reset_table()  # a fresh sweep, as bench/tune_sweep.py runs it
     try:
         res = autotune.tune_graph(art.graph, art.params, iters=3, reps=2)
         assert res and all("kernel_ms" in d and d["card"] for d in res.values())
@@ -1097,3 +1098,39 @@ def test_entry_on_card(cuda):
     assert image.device.type == "cuda"
     y = fwd(params, image)
     assert tuple(y.shape) == (2, 64) and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.cuda
+def test_server_replays_from_its_thread_equal_the_capturing_threads(cuda):
+    """``InferenceServer.start`` captures the forward on this thread; the
+    batcher's thread replays it. Each served row equals the row of a replay
+    from this thread, bit for bit, through client threads."""
+    import threading
+
+    from tf2_tpu_torch.models import synthetic_quantized
+    from tf2_tpu_torch.runtime import Engine
+    from tf2_tpu_torch.serve import InferenceServer
+
+    art = synthetic_quantized("resnet50", seed=0, batch=2, image=64, depths=(1, 1, 1, 1),
+                              classes=64)
+    eng = Engine(art.graph, art.params)
+    x = np.random.default_rng(3).standard_normal((6, 64, 64, 3)).astype(np.float32)
+    srv = InferenceServer(eng, 2).start()
+    assert eng.built and srv.stats()["captured"] is True
+    want = np.concatenate([eng.run(image=x[i:i + 2]).cpu().numpy() for i in range(0, 6, 2)])
+    got = {}
+
+    def client(i):
+        got[i] = srv.predict(x[i], timeout=60)
+
+    try:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        srv.stop()
+    for i in range(6):
+        np.testing.assert_array_equal(got[i], want[i])
