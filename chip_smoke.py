@@ -56,7 +56,7 @@ Phases, in order; any failure exits non-zero before the last line:
              64 (kernel, plain, bound) and its kernel at batch 1.
  7. fused    the default Engine's run at batch 64 and 1, the main path:
              launch counts per forward (6 / 1 / 0 / 6 / 4 / 0 / 0 / 0 / 1,
-             moved by its routes: routed_launches), every node
+             moved by its routes: Engine.expected_launches), every node
              equal to the plain path and, at batch 1, to the fused Engine on
              the CPU; logits equal to phase 5's bit for bit;
              Engine.benchmark beside it.
@@ -230,12 +230,28 @@ Phases, in order; any failure exits non-zero before the last line:
              ResNet-50 b64's roofline (bench/roofline.py) with both, its
              sol_fraction against phase 16's built ms; native/libtf2preproc.so
              unchanged. Every number printed with the card.
+21. parallel (run after phase 20, on phase 16's built default ResNet-50
+             Engine at batch 64) the port's parallelism (tf2_tpu_torch/
+             parallel/, runtime/distributed.py, serve/multihost.py): one rank
+             over NCCL in this process (initialize, barrier; the Engine with
+             mesh=make_mesh(tp=1) built, MultiHostEngine on both data planes,
+             allgather_matmul at tp 1 against torch._int_mm); then two ranks
+             over gloo sharing the card (NCCL refuses two ranks on one device),
+             spawned with the artifact saved and the kernels built: tp 2
+             default, tp 2 block_fusion=False and dp 2 at global batch 64,
+             plain_nodes empty and the unmeshed launch counts on each rank,
+             every int8 node equal to its slice of the unmeshed Engine's
+             (compare_shardings, atol 0), gathered logits equal to phase 16's,
+             each rank's eager ms a forward printed (not a scaling number);
+             MultiHostEngine (dp 2) on both planes; the ring and all-gather
+             tp matmuls on int8 at the reference bench's shape. Its seconds
+             printed; a failing rank fails the run.
 Every zoo Engine on the card (phases 3-14) must have empty plain_nodes:
 the coverage plan sends none of the zoo's nodes to a plain version.
 Launch counts are in the order (qmatmul_pot4, qmatmul_int8, qconv_s1,
 qconv_s2, qblockchain, qlrn, qattention, qconv_s2x1, qstem). Prints the
 headline bench's line, the summary line (every path's numbers, the stem
-routes, the captured forwards, the routes, serving, the run's wall time),
+routes, the captured forwards, the routes, serving, parallelism, the wall time),
 the kernels JSON line (launches from the Engine each kernel was timed on:
 the conv and GEMM kernels' from phase 5's unfused Engine, which runs every
 conv (the default's chains take the 3x3s and most GEMMs, phase 7),
@@ -254,6 +270,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -593,7 +610,10 @@ def _chain_work(node, params, x_q, y) -> tuple[float, float]:
 
 def _library(node, params, x_q):
     """One PyTorch call computing the same product (no epilogue), used
-    only as a time: torch._int_mm for GEMMs, bf16 F.conv2d for convs,
+    only as a time: torch._int_mm for GEMMs, its B given column-major
+    (``w2.t().contiguous().t()``), the layout on which the library is
+    fastest (bench/peaks.py, 8192^3: 978 TOP/s against 132 row-major, NVIDIA
+    H100 80GB HBM3, 700 W), bf16 F.conv2d for convs,
     F.local_response_norm on the dequantized f32 tensor (its NCHW view,
     alpha times the window so that its alpha / n is the node's alpha) for
     qlrn, F.scaled_dot_product_attention on the dequantized bf16 q, k, v
@@ -636,7 +656,7 @@ def _library(node, params, x_q):
         x2 = _main_input(x_q).reshape(-1, node.attrs["kshape"][0])
         w2 = w if node.attrs["wfmt"] == "int8" else potq.pot_decode(
             potq.unpack_codes(w, node.attrs["kshape"][0]))
-    w2 = w2.contiguous()  # the Engine's int8 weights are K-major views
+    w2 = w2.t().contiguous().t()  # column-major B: _int_mm's fast layout
     return lambda: torch._int_mm(x2, w2)
 
 
@@ -1250,33 +1270,11 @@ def phase_chains(engines, images, stats):
     return plain_envs
 
 
-def routed_launches(eng, expected, graph):
-    """``expected`` (a forward's launches with every node on ``kernel``)
-    moved by the routes the Engine resolved at load: a GEMM node on
-    ``kernel_int8`` launches the int8 GEMM in place of the pot4 one, a node
-    on ``library`` no kernel; a k x k conv on ``kernel_int8`` stays on its
-    conv kernel. ``graph``: the artifact's, which names each node's
-    weight format before the decode."""
-    from tf2_tpu_torch.kernels import dispatch
-
-    if not eng.routes:
-        return expected
-    if graph is None:
-        raise RuntimeError(f"{eng.graph.name}: routed nodes {sorted(eng.routes)} and no graph")
-    out, src, final = dict(expected), graph.node_map(), eng.graph.node_map()
-    for name, route in eng.routes.items():
-        if dispatch.runs_gemm(final[name], "int8"):
-            out["qmatmul_" + src[name].attrs["wfmt"]] -= 1
-            if route == "kernel_int8":
-                out["qmatmul_int8"] += 1
-    return out
-
-
 def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as=None,
                out_shape=(1000,), graph=None):
     """A path through Engine.run: launch counts per forward must equal
-    ``expected`` as the Engine's routes move it (``routed_launches``, on the
-    artifact's ``graph``); returns (launches per b64 forward, summary,
+    ``expected`` as the Engine's routes move it (``Engine.expected_launches``,
+    on the artifact's ``graph``); returns (launches per b64 forward, summary,
     outputs by batch). The outputs must be finite, (B, *out_shape). At batch 1 every
     node and the outputs must also equal the Engine on the CPU, whose plain
     path the CPU tests hold against tf2_tpu; with ``same_as`` the outputs
@@ -1289,7 +1287,7 @@ def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as
         kernels.reset_launch_counts()
         logits = eng.run(image=images[b])
         counts = kernels.launch_counts()
-        want = routed_launches(eng, expected, graph)
+        want = eng.expected_launches(expected, graph)
         if counts != want:
             raise RuntimeError(f"{label} b{b}: launches per forward {counts}, expected {want} "
                                f"(routes {eng.routes})")
@@ -2394,7 +2392,6 @@ def phase_serving(engines, donated, art, captured, smi: str) -> dict:
     import io
     import threading
     import urllib.error
-    from pathlib import Path
 
     from tf2_tpu_torch import kernels
     from tf2_tpu_torch.bench import peaks, roofline, serving_bench
@@ -2470,7 +2467,7 @@ def phase_serving(engines, donated, art, captured, smi: str) -> dict:
     kernels.reset_launch_counts()
     srv = InferenceServer(eng64, 64).start()
     start_counts = kernels.launch_counts()
-    want = {k: 2 * v for k, v in routed_launches(eng64, FUSED_LAUNCHES, graph).items()}
+    want = {k: 2 * v for k, v in eng64.expected_launches(FUSED_LAUNCHES, graph).items()}
     if start_counts != want or not eng64.built:
         raise RuntimeError(f"serving b64: start() launched {start_counts}, expected {want} "
                            "(the build's warm-up and capture)")
@@ -2569,7 +2566,7 @@ def phase_serving(engines, donated, art, captured, smi: str) -> dict:
     if len(ssd_got) != len(xs) or ssd_stats["captured"] or not ssd_stats["host_syncs"]:
         raise RuntimeError(f"serving ssd: {len(ssd_got)} of {len(xs)} served, stats {ssd_stats}")
     _rows_equal("ssd", [ssd_got[i] for i in range(len(xs))], ssd_direct)
-    per_forward = routed_launches(ssd_eng, SSD_LAUNCHES, ssd.graph)
+    per_forward = ssd_eng.expected_launches(SSD_LAUNCHES, ssd.graph)
     ssd_counts = kernels.launch_counts()
     if ssd_counts != {k: ssd_stats["batches"] * v for k, v in per_forward.items()}:
         raise RuntimeError(f"serving ssd: launches {ssd_counts} over {ssd_stats['batches']} "
@@ -2628,6 +2625,137 @@ def phase_serving(engines, donated, art, captured, smi: str) -> dict:
     return summary
 
 
+# phase 21: parallelism
+PARALLEL_MESHES = [("tp2", 2, {}, "fused"), ("tp2_unfused", 2, {"block_fusion": False}, "unfused"),
+                   ("dp2", 1, {}, "fused")]
+PARALLEL_TIMED = [5, 3]              # Engine.benchmark iters, reps: each rank's eager forward
+PARALLEL_MATMUL = (512, 2048, 1024)  # the reference tp_overlap bench's m, k, n
+PARALLEL_SPAWN_S = 600
+
+
+def phase_parallel(engine64, art, x, smi: str) -> dict:
+    """Phase 21, after phase 20, on phase 16's built default ResNet-50
+    Engine at batch 64 (its logits are the reference of every reading):
+    (a) one rank over NCCL (runtime.distributed.initialize, barrier): the
+    Engine with mesh=make_mesh(tp=1), built (one CUDA graph), and
+    MultiHostEngine(make_mesh(tp=1)) on both data planes, each equal to
+    phase 16's logits bit for bit; allgather_matmul at tp 1 on int8 equal to
+    torch._int_mm. (b) two ranks over gloo sharing the card
+    (parallel.launch.spawn of bench/mesh_worker.py; the artifact saved and
+    every kernel built before the spawn, so the ranks only load them): tp 2
+    default (chains whole on each rank), tp 2 with block_fusion=False (every
+    conv sliced) and dp 2, at global batch 64, each rank's plain_nodes
+    empty, its launch counts those of the unmeshed Engine
+    (Engine.expected_launches), every int8 node equal to its part of the
+    unmeshed Engine's (utils.debug.compare_shardings, atol 0), the gathered
+    logits equal to phase 16's, each rank's eager ms a forward printed;
+    MultiHostEngine (dp 2) on both planes equal to phase 16's rows; the ring
+    and the all-gather tp matmuls on int8 at the reference bench's shape
+    equal to torch._int_mm. A failing rank fails the phase."""
+    import torch.distributed as dist
+
+    from tf2_tpu_torch.parallel import make_mesh
+    from tf2_tpu_torch.parallel.launch import free_port, spawn
+    from tf2_tpu_torch.parallel.tp_overlap import allgather_matmul
+    from tf2_tpu_torch.runtime import Engine
+    from tf2_tpu_torch.runtime.distributed import barrier, initialize
+    from tf2_tpu_torch.serve.multihost import MultiHostEngine
+    from tf2_tpu_torch.transform import save_artifact
+
+    t0 = time.time()
+    graph, params = art
+    want = engine64(image=x).cpu().numpy()
+    x_np = x.cpu().numpy()
+    summary = {"card": smi}
+    shared = f"2 processes sharing one {smi} (gloo): not a scaling number"
+
+    def equal(label, got, ref=want):
+        if not np.array_equal(np.asarray(got), ref):
+            raise RuntimeError(f"parallel {label}: differs from phase 16's built Engine")
+
+    # (a) one rank over NCCL
+    info = initialize(coordinator=f"127.0.0.1:{free_port()}", num_processes=1, process_id=0,
+                      backend="nccl", timeout_s=120)
+    try:
+        if info["backend"] != "nccl":
+            raise RuntimeError(f"parallel: backend {info['backend']}, asked for nccl")
+        barrier("phase 21", timeout_s=60)
+        eng = Engine(graph, params, mesh=make_mesh(tp=1)).build(image=x)
+        equal("nccl tp1 built", eng(image=x).cpu())
+        del eng
+        mh = MultiHostEngine(graph, params, mesh=make_mesh(tp=1))
+        equal("nccl coordinator-fed", mh.step(x_np))
+        equal("nccl shard-local", mh.step(local_rows=x_np))
+        equal("nccl shard-local own rows", mh.step(local_rows=x_np, gather=False))
+        mh.shutdown()
+        del mh
+        rng = np.random.default_rng(21)
+        m, k, n = PARALLEL_MATMUL
+        y8 = torch.as_tensor(rng.integers(-127, 128, (m, k), dtype=np.int8)).cuda()
+        w8 = torch.as_tensor(rng.integers(-127, 128, (k, n), dtype=np.int8)).cuda()
+        if not torch.equal(allgather_matmul(make_mesh(tp=1), y8, w8, torch.int32),
+                           torch._int_mm(y8, w8)):
+            raise RuntimeError("parallel: allgather_matmul at tp 1 differs from torch._int_mm")
+        summary["nccl_one_rank"] = {"backend": info["backend"], "built": True,
+                                    "multihost_planes": 2, "allgather_matmul_tp1": "exact"}
+        log(f"parallel (a): one rank over {info['backend']}: the tp=1 meshed Engine (built), "
+            "MultiHostEngine on both planes and allgather_matmul equal phase 16 / _int_mm")
+    finally:
+        dist.destroy_process_group()
+    # (b) two ranks over gloo on the one card
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        t_save = time.time()
+        save_artifact(str(d / "art"), graph, params)
+        np.savez(d / "x.npz", image=x_np)
+        np.savez(d / "ops.npz", y_int8=y8.cpu().numpy(), w_int8=w8.cpu().numpy())
+        expected = {"fused": FUSED_LAUNCHES, "unfused": EXPECTED_LAUNCHES}
+        cfg = {"artifact": str(d / "art"), "inputs": str(d / "x.npz"), "out": str(d),
+               "device": "cuda", "check_shardings": True, "timed": PARALLEL_TIMED,
+               "multihost": {"tp": 1}, "matmul": str(d / "ops.npz"),
+               "meshes": [{"label": label, "tp": tp, "flags": flags, "expected": expected[e]}
+                          for label, tp, flags, e in PARALLEL_MESHES]}
+        (d / "cfg.json").write_text(json.dumps(cfg))
+        log(f"parallel (b): artifact saved in {time.time() - t_save:.1f} s; spawning 2 gloo ranks")
+        t_spawn = time.time()
+        logs = spawn("tf2_tpu_torch.bench.mesh_worker:run", 2, backend="gloo", device="cuda",
+                     args=[str(d / "cfg.json")], timeout_s=PARALLEL_SPAWN_S)
+        spawn_s = time.time() - t_spawn
+        for r, text in enumerate(logs):
+            log(f"rank {r}: {text.strip().splitlines()[0]}")
+        reports = [json.loads((d / f"rank{r}.json").read_text()) for r in range(2)]
+        dense = torch._int_mm(y8, w8).cpu().numpy()
+        ops = np.load(d / "matmul.npz")
+        for name in ("ring_int8", "gspmd_int8"):
+            equal(name, ops[name], dense)
+        mh = np.load(d / "multihost.npz")
+        equal("gloo dp2 coordinator-fed", mh["global_plane"])
+        equal("gloo dp2 coordinator-fed, reversed batch", mh["global_plane_reversed"],
+              want[::-1])
+        equal("gloo dp2 shard-local", mh["local_plane"])
+        equal("gloo dp2 own rows", mh["own_rows"], want[:32])
+        meshes = {}
+        for i, (label, tp, _, _) in enumerate(PARALLEL_MESHES):
+            equal(f"gloo {label} gathered logits", np.load(d / f"{label}.npz")["logits"])
+            ranks = [rep["meshes"][i] for rep in reports]
+            for rep in ranks:
+                if rep["plain_nodes"] or rep["findings"]:
+                    raise RuntimeError(f"parallel {label}: {rep}")
+            meshes[label] = {"dp": ranks[0]["dp"], "tp": tp, "tp_nodes": ranks[0]["tp_nodes"],
+                             "launches_per_rank": ranks[0]["launches"],
+                             "ms_per_forward": [rep["ms_per_forward"] for rep in ranks]}
+            log(f"parallel {label}: dp {ranks[0]['dp']} tp {tp}, {ranks[0]['tp_nodes']} sliced "
+                f"nodes, launches a rank {ranks[0]['launches']}, every int8 node exact, logits "
+                f"equal; eager ms a forward by rank {meshes[label]['ms_per_forward']} "
+                f"({shared})")
+        summary["gloo_two_ranks"] = {"label": shared, "backend": reports[0]["backend"],
+                                     "meshes": meshes, "spawn_s": spawn_s,
+                                     "multihost_planes": 2, "tp_matmul_int8": "exact"}
+    summary["seconds"] = time.time() - t0
+    log(f"parallel: phase 21 took {summary['seconds']:.1f} s (spawned ranks {spawn_s:.1f} s)")
+    return summary
+
+
 def main() -> int:
     t0 = time.time()
     smi = phase_card()
@@ -2675,6 +2803,7 @@ def main() -> int:
     headline_line = phase_headline(engines["default"], art, images[64], smi)
     summary["serving"] = phase_serving(engines["default"], donated, art,
                                        summary["captured"]["default"], smi)
+    summary["parallel"] = phase_parallel(engines["default"][64], art, images[64], smi)
     del engines, cpu_engines, plain_envs, fused_envs, envs, art, donated
     zoo = {}
     for name in ZOO_LAUNCHES:

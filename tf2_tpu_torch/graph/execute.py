@@ -10,6 +10,9 @@ Engine's coverage plan: the nodes no kernel takes), and
 nodes on the ``library`` route (``torch._int_mm``; the Engine's routes,
 ``kernels/dispatch.py``). An op whose executor waits on the host is
 registered with the reason (``host_sync``); ``host_syncs`` lists a graph's.
+``execute(graph, gather_nodes=names, gather=fn)`` passes each named node's
+output through ``fn`` before any later node reads it (a tp-meshed Engine's
+all-gather of the output channels, ``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -57,9 +60,24 @@ def _widen(v):
     return v.to(torch.float64) if v.dtype == torch.float32 else v
 
 
+def run_node(node: Node, params: Params, *args, plain: bool = False, library: bool = False):
+    """One node's output on its inputs: its ``library`` route
+    (``library``), its plain version (``plain``, for an op with a kernel),
+    or its executor."""
+    if node.op not in _OP_IMPLS:
+        raise NotImplementedError(f"op {node.op!r} has no executor")
+    impl, takes_plain = _OP_IMPLS[node.op]
+    if library:
+        return _LIBRARY[node.op](node, params, *args)
+    if takes_plain:
+        return impl(node, params, *args, plain=plain)
+    return impl(node, params, *args)
+
+
 def execute(graph: Graph, intermediates: bool = False, plain: bool = False,
             plain_nodes: frozenset[str] = frozenset(),
-            library_nodes: frozenset[str] = frozenset(), wide: bool = False):
+            library_nodes: frozenset[str] = frozenset(), wide: bool = False,
+            gather_nodes: frozenset[str] = frozenset(), gather: Callable | None = None):
     """Return fn(params, **inputs) -> outputs (a tuple if several). With
     ``intermediates=True`` it returns (outputs, dict of every value). The
     nodes named in ``plain_nodes`` run their plain versions, as every node
@@ -70,15 +88,15 @@ def execute(graph: Graph, intermediates: bool = False, plain: bool = False,
     steps (or an exact f64 sum). The f32 values then agree on the card and
     the CPU, apart from an output whose f64 value lies within its own error
     of an f32 rounding boundary (about K * 2^-29 of a K-term sum's
-    outputs): the Transform Kit's forwards (``transform/calibrate.py``)."""
+    outputs): the Transform Kit's forwards (``transform/calibrate.py``).
+    The outputs of ``gather_nodes`` pass through ``gather``."""
+    if gather_nodes and gather is None:
+        raise ValueError("gather_nodes given without a gather")
 
     def fn(params: Params, **inputs):
         env: dict[str, torch.Tensor] = dict(inputs)
         wide_params: dict[str, torch.Tensor] = {}
         for node in graph.nodes:
-            if node.op not in _OP_IMPLS:
-                raise NotImplementedError(f"op {node.op!r} has no executor")
-            impl, takes_plain = _OP_IMPLS[node.op]
             args = [env[i] for i in node.inputs]
             widen = wide and node.op in WIDE_OPS
             if widen:
@@ -90,15 +108,12 @@ def execute(graph: Graph, intermediates: bool = False, plain: bool = False,
             # device time to "<op>:<node>"
             with torch.profiler.record_function(f"{node.op}:{node.name}"):
                 if widen:
-                    out = impl(node, wide_params, *args)
-                    env[node.name] = out.to(torch.float32) if out.dtype == torch.float64 else out
-                elif node.name in library_nodes and not plain:
-                    env[node.name] = _LIBRARY[node.op](node, params, *args)
-                elif takes_plain:
-                    env[node.name] = impl(node, params, *args,
-                                          plain=plain or node.name in plain_nodes)
+                    out = run_node(node, wide_params, *args)
+                    out = out.to(torch.float32) if out.dtype == torch.float64 else out
                 else:
-                    env[node.name] = impl(node, params, *args)
+                    out = run_node(node, params, *args, plain=plain or node.name in plain_nodes,
+                                   library=node.name in library_nodes and not plain)
+                env[node.name] = gather(out) if node.name in gather_nodes else out
         outs = tuple(env[o] for o in graph.outputs)
         result = outs[0] if len(outs) == 1 else outs
         return (result, env) if intermediates else result

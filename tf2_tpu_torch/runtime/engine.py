@@ -23,6 +23,8 @@ from ..graph.optimize import (fuse_bottleneck_chains, fuse_lrn_quantize,
                               merge_sibling_1x1, pack_phase_stem, space_to_depth_stem)
 from ..graph.shapes import activation_shapes
 from ..kernels import dispatch, qattention, qblocks, qconv, qlrn, qstem
+from ..parallel.mesh import (MeshConfig, all_gather_last, batch_bounds, channel_bounds,
+                             gather_batch, input_shardings, local_node, tp_shardable)
 from ..transform import potq
 
 
@@ -65,16 +67,19 @@ def _packed_kernel_takes(n: Node) -> bool:
     return bool(keep and np.prod(n.attrs["kshape"][:-1]) % 2 == 0)
 
 
-def routes_of(graph: Graph, params) -> dict[str, str]:
+def routes_of(graph: Graph, params, mesh: MeshConfig | None = None) -> dict[str, str]:
     """{node: route} of the qconv2d and qdense nodes whose route
     (``dispatch.route_node`` on its input shape: override, table,
     ``kernel``) is not ``kernel``: resolved once at load, as the
-    reference's predecode asks ``route_conv``/``route_dense``."""
+    reference's predecode asks ``route_conv``/``route_dense``. Under a tp
+    ``mesh`` a node that computes its slice of the output channels is
+    routed at the width it runs (``parallel.mesh.local_node``)."""
     shapes = activation_shapes(graph, params)
     routes = {}
     for n in graph.nodes:
         if n.op in ("qconv2d", "qdense"):
-            r = dispatch.route_node(n, shapes[n.inputs[0]])
+            node = local_node(n, mesh) if mesh and tp_shardable(n, graph, mesh) else n
+            r = dispatch.route_node(node, shapes[n.inputs[0]])
             if r != "kernel":
                 routes[n.name] = r
     return routes
@@ -128,6 +133,35 @@ def _fuse_chains(graph: Graph, params):
     names = {n.name for n in graph.nodes}
     return _on_int8(graph, params, fuse_bottleneck_chains,
                     lambda g: names - {n.name for n in g.nodes})
+
+
+def shard_tp(graph: Graph, params, mesh: MeshConfig):
+    """The graph as this rank of a tp mesh runs it: each node that
+    ``tp_shardable`` takes gets this rank's slice of its output channels
+    (its last-axis params cut, its ``kshape`` narrowed; a folded residual
+    input read through a ``slice_c`` of the same channels). -> (graph,
+    params, names of the sliced nodes), whose outputs the forward
+    all-gathers before any later node reads them."""
+    nodes, new_params, specs, sliced = [], dict(params), dict(graph.params), set()
+    for n in graph.nodes:
+        if not tp_shardable(n, graph, mesh):
+            nodes.append(n)
+            continue
+        lo, hi = channel_bounds(graph.params[n.params[0]].shape[-1], mesh)
+        for p in n.params:
+            new_params[p] = np.ascontiguousarray(np.asarray(params[p])[..., lo:hi])
+            specs[p] = TensorSpec(new_params[p].shape, graph.params[p].dtype)
+        n = local_node(n, mesh)
+        if n.op == "qdense" and len(n.inputs) == 2:  # the folded residual, per channel
+            res = Node(f"{n.name}__tp_residual", "slice_c", (n.inputs[1],), (),
+                       {"lo": lo, "hi": hi})
+            nodes.append(res)
+            n = Node(n.name, n.op, (n.inputs[0], res.name), n.params, n.attrs)
+        nodes.append(n)
+        sliced.add(n.name)
+    g = Graph(graph.name, dict(graph.inputs), graph.outputs, nodes, specs, dict(graph.meta))
+    g.validate()
+    return g, new_params, frozenset(sliced)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,6 +240,25 @@ class Engine:
     as those kernels read them (``dispatch.prepare_weights``), each once,
     seen through a view of its own shape.
 
+    ``mesh`` (``parallel.make_mesh``; the reference's ``mesh`` option,
+    ``tf2_tpu/runtime/engine.py:157-167, 204-209``) runs this rank's part
+    of the forward. dp: the graph's batch becomes the local batch before
+    any route or plan is made; ``shard_inputs`` cuts this rank's rows out
+    of a global batch (where dp does not divide it, every rank runs the
+    whole batch, as the reference replicates it); a call returns this
+    rank's rows and ``gather`` the global output. tp: after the load
+    passes, each node that computes its slice of the output channels
+    bit-equal to the whole node's (``parallel.mesh.tp_shardable``:
+    ungrouped ``qconv2d``, the stems included, and ``qdense``) gets this
+    rank's slice of its params (``shard_tp``, before
+    ``dispatch.prepare_weights``) and its output is all-gathered
+    (``parallel.mesh.all_gather_last``) before the next node; those nodes
+    are ``tp_nodes``. Every other node (the chains, layer norm, attention,
+    the int8 glue) runs whole on every rank. The plans see the widths each
+    node runs. Outputs equal the unmeshed Engine's bit for bit. A tp
+    forward calls collectives (under gloo, with host copies), so ``build``
+    refuses it on the card and such an Engine runs eager.
+
     ``donate_inputs=True``: the caller gives each input tensor to the
     Engine and must not use it again. The Engine reads a donated tensor in
     place (as it reads any tensor on its device) and, once the forward is
@@ -221,12 +274,20 @@ class Engine:
                  device: str | torch.device = "cuda", predecode: bool = True,
                  block_fusion: bool = True, merge_1x1: bool = False,
                  phase_stem: bool = False, optimize: bool = False,
-                 donate_inputs: bool = False):
+                 donate_inputs: bool = False, mesh: MeshConfig | None = None):
         self.device = resolve_device(device)
         graph.validate()
+        self.mesh = mesh
+        self.rows = None   # this rank's rows [lo, hi) of the global batch
+        self._in_sh = {}
+        if mesh is not None:
+            self._in_sh = input_shardings(graph, mesh)
+            self.rows = batch_bounds(next(iter(graph.inputs.values())).shape[0], mesh)
+            if self.rows is not None:
+                graph = graph.with_batch_size(self.rows[1] - self.rows[0])
         routes = {}
         if predecode:
-            routes = routes_of(graph, params)
+            routes = routes_of(graph, params, mesh)
             graph, params = _predecode_fallback_weights(graph, params, routes)
             graph, params = fuse_stem_quantize(graph, params)
             graph, params = fuse_lrn_quantize(graph, params)
@@ -244,6 +305,13 @@ class Engine:
                 graph, params = fuse_bottleneck_chains(graph, params)
             if optimize:
                 graph, params = space_to_depth_stem(graph, params)
+        self.tp_nodes = frozenset()
+        shapes = None
+        if mesh is not None and mesh.tp > 1:
+            # every node reads whole inputs (a sliced node's output is
+            # gathered): the plans take the shapes of the graph before the cut
+            shapes = activation_shapes(graph, params)
+            graph, params, self.tp_nodes = shard_tp(graph, params, mesh)
         self.graph = graph
         # a routed node a later pass replaced (a merged or fused conv) takes
         # the route of what replaced it: kernel
@@ -252,20 +320,23 @@ class Engine:
         self.library_nodes = frozenset(k for k, r in self.routes.items()
                                        if r == "library" and dispatch.runs_gemm(kept[k], "int8"))
         on_card = self.device.type == "cuda"
-        self.plain_nodes = self.plan(graph, params, Limits.of_card()) if on_card else frozenset()
-        self.stem_nodes = (self.stem_plan(graph, params, Limits.of_card()) if on_card
+        self.plain_nodes = (self.plan(graph, params, Limits.of_card(), shapes) if on_card
+                            else frozenset())
+        self.stem_nodes = (self.stem_plan(graph, params, Limits.of_card(), shapes) if on_card
                            else frozenset())
         self.params = dispatch.prepare_weights(
             graph, {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in params.items()},
             self.stem_nodes)
-        self._fn = execute(graph, plain_nodes=self.plain_nodes, library_nodes=self.library_nodes)
+        self._fn = execute(graph, plain_nodes=self.plain_nodes, library_nodes=self.library_nodes,
+                           gather_nodes=self.tp_nodes,
+                           gather=lambda t: all_gather_last(mesh, t))
         self._donate = donate_inputs
         self._graph = None        # the captured forward (build)
         self._static_in: dict[str, torch.Tensor] = {}
         self._static_out = None
 
     @staticmethod
-    def plan(graph: Graph, params, limits: Limits) -> frozenset[str]:
+    def plan(graph: Graph, params, limits: Limits, shapes=None) -> frozenset[str]:
         """The names of the nodes that no kernel takes, each asked of its
         kernel's own predicate (the one its wrapper asks) on the shapes
         ``activation_shapes`` gives: ``qconv.covers`` for a conv (and, for
@@ -275,8 +346,10 @@ class Engine:
         ``qblocks.covers`` with the card's ``limits``. Int8 dense layers
         and the ``wpack2`` stem always have a kernel, and the int8 glue
         needs none (the reference's XLA fallback,
-        ``tf2_tpu/kernels/dispatch.py``, made at load)."""
-        shapes = activation_shapes(graph, params)
+        ``tf2_tpu/kernels/dispatch.py``, made at load). ``shapes``:
+        the values' shapes where the graph alone does not give them (a tp
+        rank's graph, whose sliced nodes' outputs are gathered)."""
+        shapes = shapes or activation_shapes(graph, params)
         rejected = set()
         for n in graph.nodes:
             pot4 = n.attrs.get("wfmt") == "pot4"
@@ -300,20 +373,60 @@ class Engine:
         return frozenset(rejected)
 
     @staticmethod
-    def stem_plan(graph: Graph, params, limits: Limits) -> frozenset[str]:
+    def stem_plan(graph: Graph, params, limits: Limits, shapes=None) -> frozenset[str]:
         """The names of the fused stems (``qconv2d`` nodes with ``s_in``
         and int8 weights: the node ``fuse_stem_quantize`` leaves) that run
         on the stem kernel: those ``qstem.routes`` takes on the shapes
         ``activation_shapes`` gives, with the card's shared memory
         (``limits``). Made at load; a stem outside it keeps the quantize and
-        the stride-2 conv kernel."""
-        shapes = activation_shapes(graph, params)
+        the stride-2 conv kernel. ``shapes`` as ``plan``'s."""
+        shapes = shapes or activation_shapes(graph, params)
         return frozenset(
             n.name for n in graph.nodes
             if n.op == "qconv2d" and "s_in" in n.attrs and n.attrs.get("wfmt") == "int8"
             and qstem.routes(tuple(n.attrs["kshape"]), tuple(n.attrs.get("strides", (1, 1))),
                              n.attrs.get("padding", "SAME"), n.attrs.get("groups", 1),
                              tuple(shapes[n.inputs[0]]), limits.smem_per_block))
+
+    def shard_inputs(self, **inputs):
+        """This rank's rows of each input of a global batch (by
+        ``parallel.mesh.input_shardings``); the inputs as given without a
+        mesh or where the batch is replicated."""
+        if self.rows is None:
+            return inputs
+        lo, hi = self.rows
+        return {k: v[lo:hi] if self._in_sh.get(k) else v for k, v in inputs.items()}
+
+    def gather(self, out):
+        """The global output from this rank's rows (a collective: every rank
+        of the mesh calls it); ``out`` as given where the batch is not split
+        (no mesh, dp 1 or a replicated batch)."""
+        if self.rows is None:
+            return out
+        if isinstance(out, tuple):
+            return tuple(gather_batch(self.mesh, o) for o in out)
+        return gather_batch(self.mesh, out)
+
+    def expected_launches(self, expected: dict[str, int], graph: Graph) -> dict[str, int]:
+        """What a forward of this Engine launches: ``expected`` (its
+        launches with every node on ``kernel``) moved by the routes resolved
+        at load. A GEMM node on ``kernel_int8`` launches the int8 GEMM in
+        place of the pot4 one, a node on ``library`` no kernel; a k x k conv
+        on ``kernel_int8`` stays on its conv kernel. ``graph``: the
+        artifact's, which names each node's weight format before the
+        decode."""
+        if not self.routes:
+            return expected
+        if graph is None:
+            raise RuntimeError(f"{self.graph.name}: routed nodes {sorted(self.routes)} "
+                               "and no graph")
+        out, src, final = dict(expected), graph.node_map(), self.graph.node_map()
+        for name, route in self.routes.items():
+            if dispatch.runs_gemm(final[name], "int8"):
+                out["qmatmul_" + src[name].attrs["wfmt"]] -= 1
+                if route == "kernel_int8":
+                    out["qmatmul_int8"] += 1
+        return out
 
     def _inputs(self, inputs) -> dict[str, torch.Tensor]:
         if not inputs:
@@ -333,13 +446,18 @@ class Engine:
         and ``benchmark`` replay it. On the CPU ``build`` is the warm-up
         forward alone: nothing is captured. A graph whose forward waits on
         the host (``graph.execute.host_syncs``: SSD's NMS) cannot be
-        captured: on the card ``build`` raises with the reason. A capture
-        that fails raises."""
+        captured, nor a tp-meshed forward (its all-gathers are collectives,
+        under gloo through the host): on the card ``build`` raises with the
+        reason. A capture that fails raises."""
         if self.device.type == "cuda":
             syncs = host_syncs(self.graph)
             if syncs:
                 raise RuntimeError(f"{self.graph.name}: a CUDA graph cannot capture a forward "
                                    "that waits on the host: " + "; ".join(syncs))
+            if self.tp_nodes:
+                raise RuntimeError(f"{self.graph.name}: a tp={self.mesh.tp} forward all-gathers "
+                                   f"the outputs of {len(self.tp_nodes)} nodes through "
+                                   "collectives; it runs eager")
         x = self._inputs(example_inputs)
         self._graph = None
         if self.device.type != "cuda":
