@@ -246,12 +246,35 @@ Phases, in order; any failure exits non-zero before the last line:
              MultiHostEngine (dp 2) on both planes; the ring and all-gather
              tp matmuls on int8 at the reference bench's shape. Its seconds
              printed; a failing rank fails the run.
+22. tools    (run after phase 21, on phase 16's built default and
+             block_fusion=False ResNet-50 Engines) the debug utilities,
+             the accuracy harness and the tools (tf2_tpu_torch/utils/debug.py,
+             tf2_tpu_torch/eval/accuracy.py, tf2_tpu_torch/bench/{ssd_cases,
+             b1_context,context_sweep,profile_trace}.py): (a) compare_backends
+             [] at b64 and b1 (atol 0); check_finite None on the folded FP32
+             ResNet-50 at b8 and, with one conv's weights NaN, that node or a
+             later one; checked_execute raising "nan"; inside plain_mode an
+             Engine at b1 launching no kernel, its logits equal to phase 16's.
+             (b) golden_eval (W4, 224x224, 2 batches of 8; cosine >= 0.99,
+             relative error <= 0.15), detection_eval (SSD W4, 256x256, 1
+             batch of 2; at least one FP32 detection scored), imagenet_eval
+             (SqueezeNet W8 on two generated shards of 16 images; a finite
+             top-1 delta). (c) both SSD score cases at b64 eager on the CLI's
+             calibrated artifact, fewer detections an image in the
+             background case. (d) b1_context's A, B and C at b64 and b1,
+             both exact fractions 1.0. (e) the b1 context sweep under a
+             temporary routing table, the committed routing_sm90.json
+             unchanged (SHA-256). (f) profile_trace on the built Engines at
+             b64 and b1: attributed share >= 0.99, device ms / benchmark ms
+             within 0.8-1.2, the ten slowest nodes printed. Every number
+             printed with the card; the phase's seconds by step.
 Every zoo Engine on the card (phases 3-14) must have empty plain_nodes:
 the coverage plan sends none of the zoo's nodes to a plain version.
 Launch counts are in the order (qmatmul_pot4, qmatmul_int8, qconv_s1,
 qconv_s2, qblockchain, qlrn, qattention, qconv_s2x1, qstem). Prints the
 headline bench's line, the summary line (every path's numbers, the stem
-routes, the captured forwards, the routes, serving, parallelism, the wall time),
+routes, the captured forwards, the routes, serving, parallelism, the tools,
+the wall time),
 the kernels JSON line (launches from the Engine each kernel was timed on:
 the conv and GEMM kernels' from phase 5's unfused Engine, which runs every
 conv (the default's chains take the 3x3s and most GEMMs, phase 7),
@@ -2756,6 +2779,177 @@ def phase_parallel(engine64, art, x, smi: str) -> dict:
     return summary
 
 
+TOOLS_GOLDEN = {"cosine_mean": 0.99, "rel_err_mean": 0.15}  # at least, at most
+TOOLS_SHARDS = (2, 16)             # imagenet_eval: shards, images a shard
+TOOLS_SWEEP_REPS = 3               # context_sweep: Engine.benchmark repetitions a trial
+TOOLS_DEVICE_OVER_BENCH = (0.8, 1.2)
+
+
+def phase_tools(engines, unfused, art, images, smi: str) -> dict:
+    """Phase 22, after phase 21, on phase 16's built ResNet-50 Engines
+    (``engines``: the default by batch; ``unfused``: block_fusion=False):
+    the debug utilities, the accuracy harness, the SSD score-case bench, the
+    b1 and in-context routing sweeps and the per-node trace attribution,
+    each step's seconds printed. Returns the summary."""
+    import hashlib
+    import os
+
+    from tf2_tpu_torch import kernels
+    from tf2_tpu_torch.bench import b1_context, context_sweep, profile_trace, ssd_cases
+    from tf2_tpu_torch.eval import accuracy
+    from tf2_tpu_torch.kernels import autotune
+    from tf2_tpu_torch.runtime import Engine
+    from tf2_tpu_torch.transform import load_artifact
+    from tf2_tpu_torch.utils import debug
+
+    graph, params = art
+    t0 = time.time()
+    summary, seconds = {}, {}
+
+    def step(name):
+        seconds[name] = time.time() - step.t
+        log(f"tools: {name} {seconds[name]:.1f} s")
+        step.t = time.time()
+    step.t = t0
+
+    # (a) debug
+    for b, eng in engines.items():
+        found = debug.compare_backends(eng.graph, eng.params, atol_quanta=0, image=images[b])
+        if found:
+            raise RuntimeError(f"tools debug b{b}: compare_backends found {found[:3]}")
+    fg, fp = _folded_fp32("resnet50", 8, 224, 1000)
+    x8 = images[64][:8]
+    if debug.check_finite(fg, fp, image=x8) is not None:
+        raise RuntimeError("tools debug: check_finite flags the clean FP32 ResNet-50")
+    convs = [n for n in fg.nodes if n.op == "conv2d"]
+    target = convs[len(convs) // 2]
+    bad = dict(fp, **{target.params[0]: fp[target.params[0]] * float("nan")})
+    first = debug.check_finite(fg, bad, image=x8)
+    names = [n.name for n in fg.nodes]
+    if first is None or names.index(first) < names.index(target.name):
+        raise RuntimeError(f"tools debug: NaN at {target.name}, check_finite named {first}")
+    try:
+        debug.checked_execute(fg)(bad, image=x8)
+        raise RuntimeError("tools debug: checked_execute let a NaN through")
+    except FloatingPointError as e:
+        if "nan" not in str(e):
+            raise
+        checked_msg = str(e)
+    want1 = engines[1].run(image=images[1])
+    before = kernels.launch_counts()
+    with debug.plain_mode():
+        plain_out = Engine(graph.with_batch_size(1), params).run(image=images[1])
+    if kernels.launch_counts() != before or not torch.equal(plain_out, want1):
+        raise RuntimeError("tools debug: plain_mode launched a kernel or changed the logits")
+    summary["debug"] = {"compare_backends": "[] at b64 and b1, atol 0",
+                        "check_finite": {"poisoned": target.name, "named": first},
+                        "checked_execute": checked_msg, "plain_mode": "no launch, logits equal"}
+    log(f"tools debug: compare_backends [] at b64 and b1; NaN at {target.name}, check_finite "
+        f"{first}; checked_execute: {checked_msg}; plain_mode: no launch, b1 logits equal")
+    step("debug")
+
+    # (b) eval
+    golden = accuracy.golden_eval("resnet50", 4, batches=2, batch=8, image=224)
+    log(f"tools eval golden: {json.dumps(golden)} ({smi})")
+    if not (golden["cosine_mean"] >= TOOLS_GOLDEN["cosine_mean"]
+            and golden["rel_err_mean"] <= TOOLS_GOLDEN["rel_err_mean"]):
+        raise RuntimeError(f"tools eval: golden {golden} outside {TOOLS_GOLDEN}")
+    step("golden_eval")
+    det = accuracy.detection_eval(wbits=4, batches=1, batch=2, image=256)
+    log(f"tools eval detection: {json.dumps(det)}")
+    if det["n_image_class_pairs"] <= 0:
+        raise RuntimeError(f"tools eval: no FP32 detection to score: {det}")
+    step("detection_eval")
+    rng = np.random.default_rng(22)
+    with tempfile.TemporaryDirectory() as d:
+        n_shards, per = TOOLS_SHARDS
+        for s in range(n_shards):
+            np.savez(os.path.join(d, f"shard{s}.npz"),
+                     image=rng.standard_normal((per, 224, 224, 3), dtype=np.float32),
+                     label=rng.integers(0, 1000, (per,)))
+        top = accuracy.imagenet_eval("squeezenet_v1_1", 8, d, image=224, batch=8)
+    log(f"tools eval imagenet: {json.dumps(top)}")
+    if not np.isfinite(top["top1_delta"]) or "pass" not in top:
+        raise RuntimeError(f"tools eval: imagenet_eval {top}")
+    summary["eval"] = {"golden": golden, "detection": det, "imagenet": top}
+    step("imagenet_eval")
+
+    # (c) ssd_cases, on the CLI's calibrated artifact (models_bench.ensure_artifact's
+    # arguments): under the synthetic scales the conf heads' requant clips the biases
+    with tempfile.TemporaryDirectory() as d:
+        run_cli(["--model", "ssd", "--wbits", 4, "--batch", 2, "--image", 256,
+                 "--calib-batches", 2, "--out", d])
+        ssd_graph, ssd_params = load_artifact(d)
+    rows = ssd_cases.run_cases(ssd_graph, ssd_params, batch=64, card=smi)
+    for row in rows:
+        log(f"tools ssd_cases: {json.dumps(row)}")
+    dets = {r["case"]: r["mean_final_dets_per_img"] for r in rows}
+    if not dets["background"] < dets["random"]:
+        raise RuntimeError(f"tools ssd_cases: background {dets['background']} detections an "
+                           f"image, not below random's {dets['random']}")
+    summary["ssd_cases"] = rows
+    del ssd_graph, ssd_params
+    step("ssd_cases")
+
+    # (d) b1_context
+    summary["b1_context"] = {}
+    for b in (64, 1):
+        c = b1_context.fc_routed(graph.with_batch_size(b), params).build(image=images[b])
+        row = b1_context.compare({"baseline": unfused[b], "qblockchain": engines[b],
+                                  "fc_routed": c}, images[b])
+        del c
+        log(f"tools b1_context b{b}: " + ", ".join(f"{k} {row[k]['ms']:.4f} ms"
+                                                   for k in b1_context.VARIANTS)
+            + f"; chain exact {row['chain_exact_frac']}, fc ({row['fc_route']}) exact "
+              f"{row['fc_exact_frac']} ({smi})")
+        if row["chain_exact_frac"] != 1.0 or row["fc_exact_frac"] != 1.0:
+            raise RuntimeError(f"tools b1_context b{b}: exact fractions {row}")
+        summary["b1_context"][f"b{b}"] = row
+    step("b1_context")
+
+    # (e) context_sweep, under a temporary table: the committed one untouched
+    committed = autotune.default_path("sm90")
+    digest = hashlib.sha256(Path(committed).read_bytes()).hexdigest()
+    with tempfile.TemporaryDirectory() as d:
+        autotune.set_table_path(os.path.join(d, "routing.json"))
+        autotune.reset_table()
+        try:
+            sweep = context_sweep.sweep(graph.with_batch_size(1), params, images[1],
+                                        reps=TOOLS_SWEEP_REPS, verbose=True)
+        finally:
+            autotune.set_table_path(None)
+    if hashlib.sha256(Path(committed).read_bytes()).hexdigest() != digest:
+        raise RuntimeError(f"tools context_sweep: {committed} changed")
+    log(f"tools context_sweep b1: base {sweep['base_ms']:.4f} ms +-{sweep['err_us']:.1f} us, "
+        f"winners {sweep['winners']}, joint {sweep['joint_ms']} kept {sweep['joint_kept']} "
+        f"({smi}); {committed} unchanged")
+    summary["context_sweep_b1"] = sweep
+    step("context_sweep")
+
+    # (f) profile_trace
+    summary["profile_trace"] = {}
+    with tempfile.TemporaryDirectory() as d:
+        for b, eng in engines.items():
+            r = profile_trace.profile_engine(eng, images[b], d, f"resnet50_b{b}")
+            lo, hi = TOOLS_DEVICE_OVER_BENCH
+            if r["attributed_share"] < 0.99 or not lo <= r["device_over_benchmark"] <= hi:
+                raise RuntimeError(f"tools profile_trace b{b}: attributed "
+                                   f"{r['attributed_share']}, device / benchmark "
+                                   f"{r['device_over_benchmark']}")
+            top10 = dict(list(r["per_node_ms"].items())[:10])
+            log(f"tools profile_trace b{b}: device {r['device_ms_per_forward']:.4f} ms a forward, "
+                f"benchmark {r['benchmark_ms']:.4f} ms, attributed {r['attributed_share']:.4f}; "
+                f"slowest nodes (ms): {json.dumps(top10)} ({smi})")
+            summary["profile_trace"][f"b{b}"] = {
+                k: r[k] for k in ("benchmark_ms", "device_ms_per_forward", "attributed_share",
+                                  "device_over_benchmark")} | {"top10_ms": top10}
+    step("profile_trace")
+    summary["seconds"] = time.time() - t0
+    summary["step_seconds"] = seconds
+    log(f"tools: phase 22 took {summary['seconds']:.1f} s")
+    return summary
+
+
 def main() -> int:
     t0 = time.time()
     smi = phase_card()
@@ -2804,6 +2998,7 @@ def main() -> int:
     summary["serving"] = phase_serving(engines["default"], donated, art,
                                        summary["captured"]["default"], smi)
     summary["parallel"] = phase_parallel(engines["default"][64], art, images[64], smi)
+    summary["tools"] = phase_tools(engines["default"], engines["unfused"], art, images, smi)
     del engines, cpu_engines, plain_envs, fused_envs, envs, art, donated
     zoo = {}
     for name in ZOO_LAUNCHES:

@@ -1134,3 +1134,38 @@ def test_server_replays_from_its_thread_equal_the_capturing_threads(cuda):
         srv.stop()
     for i in range(6):
         np.testing.assert_array_equal(got[i], want[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [{"block_fusion": False}, {}])
+def test_compare_backends_is_empty_on_card(cuda, flags):
+    """Every int8 node of a small ResNet's Engine on its kernels equals its
+    plain version on the card: ``compare_backends`` at atol 0 finds none."""
+    from tf2_tpu_torch.runtime import Engine
+    from tf2_tpu_torch.utils.debug import compare_backends
+
+    art = _small_resnet()
+    eng = Engine(art.graph, art.params, **flags)
+    x = _images(cuda, 1, seed=4)[0]
+    assert compare_backends(eng.graph, eng.params, atol_quanta=0, image=x) == []
+
+
+@pytest.mark.cuda
+def test_plain_mode_launches_no_kernel_on_card(cuda):
+    """Inside ``plain_mode`` an Engine on the card launches no kernel and
+    gives the kernels' logits; after it, the same Engine launches them
+    again."""
+    from tf2_tpu_torch.runtime import Engine
+    from tf2_tpu_torch.utils.debug import plain_mode
+
+    art = _small_resnet()
+    x = _images(cuda, 1, seed=5)[0]
+    want = Engine(art.graph, art.params).run(image=x)
+    with plain_mode():
+        eng = Engine(art.graph, art.params)
+        kernels.reset_launch_counts()
+        got = eng.run(image=x)
+        assert set(kernels.launch_counts().values()) == {0}
+    assert torch.equal(got, want)
+    eng.run(image=x)
+    assert sum(kernels.launch_counts().values()) > 0

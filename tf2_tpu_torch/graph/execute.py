@@ -60,13 +60,27 @@ def _widen(v):
     return v.to(torch.float64) if v.dtype == torch.float32 else v
 
 
+_PLAIN_MODE = False   # utils/debug.plain_mode: every node plain
+
+
+def set_plain_mode(flag: bool) -> bool:
+    """Make every node plain (``True``) or not, process-wide; returns the
+    previous setting (``utils/debug.plain_mode`` sets and restores it)."""
+    global _PLAIN_MODE
+    prev, _PLAIN_MODE = _PLAIN_MODE, bool(flag)
+    return prev
+
+
 def run_node(node: Node, params: Params, *args, plain: bool = False, library: bool = False):
     """One node's output on its inputs: its ``library`` route
     (``library``), its plain version (``plain``, for an op with a kernel),
-    or its executor."""
+    or its executor. Under ``set_plain_mode(True)`` every node takes its
+    plain version, whatever it was asked."""
     if node.op not in _OP_IMPLS:
         raise NotImplementedError(f"op {node.op!r} has no executor")
     impl, takes_plain = _OP_IMPLS[node.op]
+    if _PLAIN_MODE:
+        plain, library = True, False
     if library:
         return _LIBRARY[node.op](node, params, *args)
     if takes_plain:

@@ -28,6 +28,7 @@ graph of ``iters`` calls of one op, whose whole output is written;
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -84,6 +85,22 @@ def reset_table() -> None:
     _TABLE = {"routes": {}, "detail": {}}
 
 
+@contextlib.contextmanager
+def routes_in_memory(routes: Mapping[str, str]):
+    """Within the block the table is the current one with ``routes`` put
+    over it, in memory only and without timing checks (an experiment's
+    routes: ``bench/b1_context.py``, ``bench/context_sweep.py``); after it,
+    the table as it was. An Engine keeps the routes it was loaded with."""
+    global _TABLE
+    prev = _TABLE
+    base = _load()
+    _TABLE = {"routes": {**base["routes"], **routes}, "detail": dict(base["detail"])}
+    try:
+        yield
+    finally:
+        _TABLE = prev
+
+
 def _read_json(path: str) -> dict:
     try:
         with open(path) as f:
@@ -137,6 +154,32 @@ def dense_key(xshape, kshape, wfmt: str) -> str:
     for d in xshape[:-1]:
         m *= d
     return f"dense:m{m}:k{kshape[0]}:n{kshape[1]}:{wfmt}"
+
+
+def node_keys(graph, params=None) -> dict[str, tuple[str, tuple[str, ...]]]:
+    """{node: (routing key, its exact routes)} of the graph's ``qconv2d``
+    and ``qdense`` nodes (``dispatch.conv_choices`` / ``dense_choices``),
+    on the shapes ``graph/shapes.activation_shapes`` gives."""
+    from ..graph.shapes import activation_shapes
+    from . import dispatch
+
+    shapes = activation_shapes(graph, params)
+    out = {}
+    for node in graph.nodes:
+        a = node.attrs
+        if node.op == "qconv2d":
+            padding = a.get("padding", "SAME")
+            out[node.name] = (
+                conv_key(shapes[node.inputs[0]], a["kshape"], a.get("strides", [1, 1]),
+                         a.get("groups", 1), a["wfmt"]),
+                dispatch.conv_choices(
+                    a["kshape"], a.get("strides", [1, 1]),
+                    padding if isinstance(padding, str) else [tuple(p) for p in padding],
+                    a.get("groups", 1), a["wfmt"]))
+        elif node.op == "qdense":
+            out[node.name] = (dense_key(shapes[node.inputs[0]], a["kshape"], a["wfmt"]),
+                              dispatch.dense_choices(a["wfmt"]))
+    return out
 
 
 def route(key: str) -> str | None:
@@ -359,7 +402,6 @@ def validate_routes(graph, params, batch_input=None, iters: int = 20, reps: int 
     nodes off ``kernel``}."""
     import torch
 
-    from ..graph.shapes import activation_shapes
     from ..runtime.engine import Engine
     from . import dispatch
 
@@ -391,16 +433,7 @@ def validate_routes(graph, params, batch_input=None, iters: int = 20, reps: int 
     kept = (bool(routed) and ms["routed"] < ms["kernel"] * (1.0 - tolerance)
             and max(times["routed"]) < min(times["kernel"]))
     if routed and not kept:
-        shapes = activation_shapes(graph, params)
-        keys = set()
-        for node in graph.nodes:
-            if node.op == "qconv2d":
-                a = node.attrs
-                keys.add(conv_key(shapes[node.inputs[0]], a["kshape"], a.get("strides", [1, 1]),
-                                  a.get("groups", 1), a.get("wfmt")))
-            elif node.op == "qdense":
-                keys.add(dense_key(shapes[node.inputs[0]], node.attrs["kshape"],
-                                   node.attrs.get("wfmt")))
+        keys = {key for key, _ in node_keys(graph, params).values()}
         t = _load()
         demoted = [k for k in keys if t["routes"].get(k, "kernel") != "kernel"]
         for k in demoted:

@@ -535,6 +535,12 @@ class Engine:
                     and v.untyped_storage().data_ptr() not in held):
                 v.untyped_storage().resize_(0)
 
+    def eager(self, **inputs):
+        """One eager forward, node by node, also after ``build``: the
+        launches the captured forward replays (``bench/profile_trace.py``
+        joins them). Returns before the device finishes."""
+        return self._fn(self.params, **self._inputs(inputs))
+
     def run(self, **inputs):
         out = self(**inputs)
         if self.device.type == "cuda":

@@ -1,3 +1,4 @@
 """Host-side utilities of the port: ``preproc``, image preprocessing
-through its own build of ``native/preproc.cpp``; ``debug``, the per-node
-check of a meshed Engine's partition (``compare_shardings``)."""
+through its own build of ``native/preproc.cpp``; ``debug``, the debugging
+tools (``plain_mode``, ``checked_execute``, ``check_finite``,
+``compare_backends``, ``compare_shardings``)."""
