@@ -135,11 +135,19 @@ Phases, in order; any failure exits non-zero before the last line:
              under both score cases (random and background-dominated,
              tf2_tpu_torch/bench/ssd_cases.py): the artifact round trip,
              Engines at batch 64 and 1 and on the CPU at batch 1, every conv
-             node against its plain version, its stem as in phase 12, then
-             as in phase 5 with (B, 100, 6) detections: launch counts
-             0 / 0 / 8 / 5 / 0 / 0 / 0 / 0 / 1, every node equal to the
-             plain path and at batch 1 to the CPU Engine (the detections
-             too), Engine.benchmark.
+             node against its plain version; the nms kernel's keep mask
+             against greedy_keep_plain's on the forward's real (image,
+             class) rows at both batches (1,280 rows of 100 at batch 64)
+             and on chain rows (every other box kept), 0 mismatches, and
+             timed at batch 64 in the random case (kernel, plain, the bound
+             from the IoUs this data needs; no library call); its stem as
+             in phase 12, then as in phase 5 with (B, 100, 6) detections:
+             launch counts 0 / 0 / 8 / 5 / 0 / 0 / 0 / 0 / 1 / 1, every node
+             equal to the plain path (its NMS the plain fixpoint) and at
+             batch 1 to the CPU Engine (the detections too),
+             Engine.benchmark; then, as phase 16, both Engines built (one
+             CUDA graph, the NMS in it), three seeded replays equal to the
+             eager detections bit for bit, captured ms beside eager.
 14. vit 384  ViT-B/16 fine-tuned at 384x384 (vit_b16_cls, T = 577: K and
              V resident, three passes over chunks of keys) as phase 10 at
              batch 8 and 1: every qdense and qattention_core node against
@@ -165,8 +173,7 @@ Phases, in order; any failure exits non-zero before the last line:
              bit and launch nothing through a wrapper; Engine.benchmark of
              the captured forward beside the eager one. ResNet-50's
              Engine(donate_inputs=True), built, equals the others, each
-             donated input freed. SSD's build raises its reason (its NMS
-             waits on the host).
+             donated input freed. (SSD's captured forwards: phase 13.)
 17. routing  for each zoo CNN at batch 64 and 1: the committed routing
              table (tf2_tpu_torch/kernels/routing_defaults/) is the one
              loaded; the default Engine (routed by it) equals
@@ -221,8 +228,10 @@ Phases, in order; any failure exits non-zero before the last line:
              kernels and the replays none, /healthz, /stats (requests,
              captured) and 400 on a malformed body; InferenceServer(batch
              1): 64 sequential requests, each equal; SSD (256x256, b8) served
-             uncaptured, every (100, 6) detection row equal, its launches
-             those of its served batches; serving_load at b64 (24 clients, 4
+             captured, every (100, 6) detection row equal, start()'s build
+             launching twice a forward's kernels (one nms) and the replays
+             none, then serving_load on it (16 clients, 2 s: served SSD
+             img/s); serving_load at b64 (24 clients, 4
              s) and b1 (4 clients, 2 s), engine_steady donate on and off (2
              s each, on phase 16's donated and default b64 Engines), the b64
              time split (serving_bench.time_split); the
@@ -259,7 +268,7 @@ Phases, in order; any failure exits non-zero before the last line:
              relative error <= 0.15), detection_eval (SSD W4, 256x256, 1
              batch of 2; at least one FP32 detection scored), imagenet_eval
              (SqueezeNet W8 on two generated shards of 16 images; a finite
-             top-1 delta). (c) both SSD score cases at b64 eager on the CLI's
+             top-1 delta). (c) both SSD score cases at b64 built on the CLI's
              calibrated artifact, fewer detections an image in the
              background case. (d) b1_context's A, B and C at b64 and b1,
              both exact fractions 1.0. (e) the b1 context sweep under a
@@ -271,7 +280,8 @@ Phases, in order; any failure exits non-zero before the last line:
 Every zoo Engine on the card (phases 3-14) must have empty plain_nodes:
 the coverage plan sends none of the zoo's nodes to a plain version.
 Launch counts are in the order (qmatmul_pot4, qmatmul_int8, qconv_s1,
-qconv_s2, qblockchain, qlrn, qattention, qconv_s2x1, qstem). Prints the
+qconv_s2, qblockchain, qlrn, qattention, qconv_s2x1, qstem, nms); nms is 0
+on every path but SSD's and left off the lists above. Prints the
 headline bench's line, the summary line (every path's numbers, the stem
 routes, the captured forwards, the routes, serving, parallelism, the tools,
 the wall time),
@@ -279,9 +289,10 @@ the kernels JSON line (launches from the Engine each kernel was timed on:
 the conv and GEMM kernels' from phase 5's unfused Engine, which runs every
 conv (the default's chains take the 3x3s and most GEMMs, phase 7),
 qblockchain's from phase 7, qconv_s2x1's from phase 11's phase_stem
-Engine, qlrn's from phase 8, qattention's from phase 10, each entry's
-launches_from naming the Engine; times at ResNet-50's
-shapes, qlrn's at GoogLeNet's, qattention's at vit_b16's), the card line
+Engine, qlrn's from phase 8, qattention's from phase 10, nms's from
+phase 13's SSD, each entry's launches_from naming the Engine; times at
+ResNet-50's shapes, qlrn's at GoogLeNet's, qattention's at vit_b16's,
+nms's at SSD's), the card line
 and, last, the contract line; the per-shape timings go to stderr as one
 JSON line.
 """
@@ -318,6 +329,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "qconv_s2x1": ("tf2_tpu_torch/kernels/csrc/qconv.cu",
                    "tf2_tpu/kernels/dispatch.py:154 (wpack2 conv, XLA not Pallas)"),
     "qstem": ("tf2_tpu_torch/kernels/csrc/qstem.cu", "tf2_tpu/kernels/qstem.py:144"),
+    # SSD's greedy NMS keep mask, which the reference runs as a tiled sweep
+    # of jnp ops in XLA, not in Pallas
+    "nms": ("tf2_tpu_torch/kernels/csrc/nms.cu",
+            "tf2_tpu/kernels/detection.py:72 (nms_single_class, XLA not Pallas)"),
 }
 KERNEL_NAMES = tuple(KERNELS)
 
@@ -327,11 +342,11 @@ def _launches(*counts):
 
 
 # launches a forward: (pot4 GEMM, int8 GEMM, conv s1, conv s2, chain, qlrn,
-# attention, conv s2x1, stem)
-EXPECTED_LAUNCHES = _launches(33, 1, 13, 6, 0, 0, 0, 0, 1)
-FUSED_LAUNCHES = _launches(6, 1, 0, 6, 4, 0, 0, 0, 1)
-STEM_LAUNCHES = {"phase_stem": _launches(33, 1, 13, 6, 0, 0, 0, 1, 0),
-                 "optimize": _launches(33, 1, 14, 6, 0, 0, 0, 0, 0)}
+# attention, conv s2x1, stem, nms)
+EXPECTED_LAUNCHES = _launches(33, 1, 13, 6, 0, 0, 0, 0, 1, 0)
+FUSED_LAUNCHES = _launches(6, 1, 0, 6, 4, 0, 0, 0, 1, 0)
+STEM_LAUNCHES = {"phase_stem": _launches(33, 1, 13, 6, 0, 0, 0, 1, 0, 0),
+                 "optimize": _launches(33, 1, 14, 6, 0, 0, 0, 0, 0, 0)}
 # the default Engine fuses the bottleneck chains (block_fusion, on by
 # default since the card measured it); the others run every block's convs
 RESNET_OPTIONS = {"unfused": {"block_fusion": False}, "default": {},
@@ -339,13 +354,17 @@ RESNET_OPTIONS = {"unfused": {"block_fusion": False}, "default": {},
                   "optimize": {"optimize": True, "block_fusion": False}}
 ZOO_OPTIONS = {"default": {}, "merge_1x1": {"merge_1x1": True}}
 ZOO_LAUNCHES = {  # model -> {option: launches}
-    "googlenet": {"default": _launches(37, 1, 19, 0, 0, 2, 0, 0, 1),
-                  "merge_1x1": _launches(10, 10, 19, 0, 0, 2, 0, 0, 1)},
-    "squeezenet_v1_1": {"default": _launches(16, 1, 8, 0, 0, 0, 0, 0, 1),
-                        "merge_1x1": _launches(12, 1, 8, 0, 0, 0, 0, 0, 1)},
+    "googlenet": {"default": _launches(37, 1, 19, 0, 0, 2, 0, 0, 1, 0),
+                  "merge_1x1": _launches(10, 10, 19, 0, 0, 2, 0, 0, 1, 0)},
+    "squeezenet_v1_1": {"default": _launches(16, 1, 8, 0, 0, 0, 0, 0, 1, 0),
+                        "merge_1x1": _launches(12, 1, 8, 0, 0, 0, 0, 0, 1, 0)},
 }
-VIT_LAUNCHES = _launches(0, 50, 0, 0, 0, 0, 12, 0, 0)
-SSD_LAUNCHES = _launches(0, 0, 8, 5, 0, 0, 0, 0, 1)
+VIT_LAUNCHES = _launches(0, 50, 0, 0, 0, 0, 12, 0, 0, 0)
+SSD_LAUNCHES = _launches(0, 0, 8, 5, 0, 0, 0, 0, 1, 1)
+# f32 operations of one IoU and its compare (csrc/nms.cu: two minima, two
+# maxima, two differences and two clamps, the product, the union's sum and
+# difference, its clamp, the division, the compare)
+NMS_OPS_PER_IOU = 14
 # ragged int8 GEMMs (m, k, n, byte offset of x, residual): with the zoo's
 # shapes they reach every tile of the GEMM plan (128x128, 128x64, 64x128,
 # 64x64), split-K and not, x copied 16, 8, 4 bytes or padded, output widths
@@ -1858,12 +1877,75 @@ def phase_ragged_stems(stats, dev):
         f"{stats.k['qconv_s2x1']['checks']} checks")
 
 
+def _nms_work(boxes_k, keep, thresh: float) -> tuple[float, float]:
+    """(bytes, f32 operations) the greedy keep mask of ``boxes_k`` (R, k, 4)
+    needs on this data (``keep`` its mask): each box read once and its flag
+    written once; 5 operations a box for its area and NMS_OPS_PER_IOU for
+    each IoU a greedy sweep must take, that of each kept box i with each
+    later box j not yet suppressed (j's first kept suppressor i' >= i)."""
+    from tf2_tpu_torch.kernels import build, detection
+
+    k = keep.shape[-1]
+    keep = keep.reshape(-1, k)
+    tri = torch.ones((k, k), dtype=torch.bool, device=keep.device).triu(1)
+    sup = ((detection.iou_matrix(boxes_k.reshape(-1, k, 4)) > build.f32(thresh))
+           & tri & keep[:, :, None])
+    j = torch.arange(k, device=keep.device)
+    first = torch.where(sup.any(-2), sup.to(torch.int8).argmax(-2), k)
+    last = torch.minimum(first, j - 1)  # the last step that takes an IoU with j
+    cum = keep.to(torch.int64).cumsum(-1)
+    pairs = int(torch.where(last >= 0, cum.gather(-1, last.clamp_min(0)), 0).sum())
+    return keep.numel() * (16 + 1), NMS_OPS_PER_IOU * pairs + 5 * keep.numel()
+
+
+def _nms_rows(stats, node, env, label: str, timed: bool) -> dict:
+    """The nms kernel on the real rows of an SSD forward (``env``: the plain
+    path's values): ``class_rows`` of the node's boxes and scores, the
+    kernel's keep mask against ``greedy_keep_plain``'s; then on chain rows
+    (each box overlapping its neighbours only: the deepest suppression a
+    row can have) and, with ``timed``, the kernel, the plain version and
+    the bound into the kernels line (no PyTorch call computes greedy NMS:
+    library_ms None)."""
+    from tf2_tpu_torch.kernels import detection
+
+    a = node.attrs
+    thresh = a.get("iou_thresh", 0.45)
+    bk, _ = detection.class_rows(env[node.inputs[0]], env[node.inputs[1]], a.get("topk", 200),
+                                 a.get("score_thresh", 0.01))
+    keep = stats.check("nms", f"{label} real rows {tuple(bk.shape)}",
+                       detection.greedy_keep(bk, thresh), detection.greedy_keep_plain(bk, thresh))
+    k = bk.shape[-2]
+    x = torch.arange(k, dtype=torch.float32, device=bk.device) * 0.3
+    chain = torch.stack([x, 0 * x, x + 1, 0 * x + 1], -1).expand(64, k, 4).contiguous()
+    chain_keep = stats.check("nms", f"{label} chain rows",
+                             detection.greedy_keep(chain, thresh),
+                             detection.greedy_keep_plain(chain, thresh))
+    if not (chain_keep[:, ::2].all() and not chain_keep[:, 1::2].any()):
+        stats.mismatches.append(f"nms {label}: chain rows not every other box kept")
+    stats.raise_on_mismatch("nms disagrees with its plain version")
+    row = {"rows": int(keep.numel() // k), "k": k, "kept": int(keep.sum())}
+    if timed:
+        nbytes, ops = _nms_work(bk, keep, thresh)
+        ms = cuda_ms(lambda: detection.greedy_keep(bk, thresh), 20)
+        plain_ms = cuda_ms(lambda: detection.greedy_keep_plain(bk, thresh), 3)
+        bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
+        stats.add("nms", {"node": node.name, "x": list(bk.shape), **row}, ms, plain_ms, None,
+                  bytes_ms, ops_ms, 1)
+        row.update(ms=ms, plain_ms=plain_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                   iou_pairs=(ops - 5 * keep.numel()) // NMS_OPS_PER_IOU)
+        log(f"nms {label}: {row}")
+    return row
+
+
 def phase_ssd(stats):
     """Phase 13: full-width SSD (256x256, 21 classes, 1,008 priors, W4-PoT)
     under both score cases (tf2_tpu_torch/bench/ssd_cases.py): the artifact
     round trip, Engines at batch 64 and 1 and on the CPU at batch 1; every
-    conv node against its plain version; the stem routes (phase_stems);
-    phase_main with (B, 100, 6) detections. Returns the summary."""
+    conv node against its plain version; the nms kernel on the forward's
+    real rows (_nms_rows; timed at b64 in the random case); the stem routes
+    (phase_stems); phase_main with (B, 100, 6) detections; then phase 16's
+    captured forward (phase_captured) on both Engines. Returns (the random
+    case's launches a b64 forward, the summary)."""
     from tf2_tpu_torch.bench.ssd_cases import CASES, case_params
 
     t = time.time()
@@ -1873,30 +1955,28 @@ def phase_ssd(stats):
     rng = np.random.default_rng(8)
     images = {b: torch.as_tensor(rng.standard_normal((b, 256, 256, 3), dtype=np.float32)).cuda()
               for b in (64, 1)}
-    summary = {}
+    summary, launches = {}, None
     for case in CASES:
         engines, cpu_engines = make_engines(graph, case_params(case, graph, params),
                                             {"default": {}})
         envs = phase_kernels(engines["default"], images, stats, timed=False)
+        nms_node = next(n for n in engines["default"][64].graph.nodes if n.op == "nms")
+        nms = {f"b{b}": _nms_rows(stats, nms_node, envs[b], f"ssd {case} b{b}",
+                                  timed=case == CASES[0] and b == 64) for b in envs}
         if case == CASES[0]:
             summary["stem_routes"] = phase_stems("ssd", engines["default"],
                                                  cpu_engines["default"], images, stats)
-        _, summary[case], dets = phase_main(f"ssd {case}", engines["default"],
-                                            cpu_engines["default"], images, envs, SSD_LAUNCHES,
-                                            out_shape=(100, 6))
+        case_launches, summary[case], dets = phase_main(
+            f"ssd {case}", engines["default"], cpu_engines["default"], images, envs,
+            SSD_LAUNCHES, out_shape=(100, 6))
+        if case == CASES[0]:
+            launches = case_launches
         summary[case]["kept_per_image_b64"] = float((dets[64][..., 4] > 0).sum()) / 64
-        if case == CASES[0]:  # phase 16: a forward that waits on the host is not captured
-            try:
-                engines["default"][1].build()
-            except RuntimeError as e:
-                if "waits on the host" not in str(e) or engines["default"][1].built:
-                    raise
-                summary["build_refused"] = str(e)
-                log(f"ssd: build refused: {e}")
-            else:
-                raise RuntimeError("ssd: build captured a forward that waits on the host")
+        summary[case]["nms"] = nms
+        summary[case]["captured"] = phase_captured(f"ssd {case}", engines["default"],
+                                                   summary[case], seed=13)
         log(f"ssd {case}: {summary[case]['kept_per_image_b64']:.2f} detections an image kept")
-    return summary
+    return launches, summary
 
 
 def phase_captured(label, engines, eager, seed: int):
@@ -2409,7 +2489,7 @@ def phase_serving(engines, donated, art, captured, smi: str) -> dict:
     ``captured`` phase 16's summary): native
     preprocessing, the prefetch loader, the continuous batcher and the HTTP
     server on the card, every served response equal bit for bit to its row
-    of a direct forward; SSD served uncaptured; the serving and engine
+    of a direct forward; SSD served captured; the serving and engine
     benches, the b64 time split, the measured peaks and the roofline.
     Returns the summary."""
     import io
@@ -2560,7 +2640,7 @@ def phase_serving(engines, donated, art, captured, smi: str) -> dict:
         np.array_equal(b1_direct[i], direct[i]) for i in range(SERVE_B1)))}
     log(f"serving b1 ({smi}): {SERVE_B1} sequential requests, each equal to the b1 Engine's "
         f"direct forward (equal to the b64 rows too: {summary['b1']['equal_to_b64_rows']})")
-    # (e) SSD: its NMS waits on the host, so it is served uncaptured
+    # (e) SSD: start() builds it (its NMS captured with the rest), as every Engine
     ssd = synthetic_quantized("ssd", seed=0, batch=SSD_SERVE_BATCH, image=SSD_SERVE_IMAGE,
                               classes=21)
     ssd_eng = zoo_engine(ssd.graph, ssd.params)
@@ -2571,6 +2651,8 @@ def phase_serving(engines, donated, art, captured, smi: str) -> dict:
                                  for i in range(0, len(xs), SSD_SERVE_BATCH)])
     kernels.reset_launch_counts()
     srv = InferenceServer(ssd_eng, SSD_SERVE_BATCH).start()
+    build_counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
     ssd_got = {}
 
     def ssd_client(k):
@@ -2586,19 +2668,23 @@ def phase_serving(engines, donated, art, captured, smi: str) -> dict:
         ssd_stats = srv.stats()
     finally:
         srv.stop()
-    if len(ssd_got) != len(xs) or ssd_stats["captured"] or not ssd_stats["host_syncs"]:
+    if len(ssd_got) != len(xs) or not ssd_stats["captured"]:
         raise RuntimeError(f"serving ssd: {len(ssd_got)} of {len(xs)} served, stats {ssd_stats}")
     _rows_equal("ssd", [ssd_got[i] for i in range(len(xs))], ssd_direct)
     per_forward = ssd_eng.expected_launches(SSD_LAUNCHES, ssd.graph)
-    ssd_counts = kernels.launch_counts()
-    if ssd_counts != {k: ssd_stats["batches"] * v for k, v in per_forward.items()}:
-        raise RuntimeError(f"serving ssd: launches {ssd_counts} over {ssd_stats['batches']} "
-                           f"batches, expected {per_forward} a forward")
+    if (build_counts != {k: 2 * v for k, v in per_forward.items()}
+            or any(kernels.launch_counts().values())):
+        raise RuntimeError(f"serving ssd: start() launched {build_counts}, expected twice "
+                           f"{per_forward}; the replays {kernels.launch_counts()}, expected none")
+    load = serving_bench.serving_load(ssd.graph, ssd.params, SSD_SERVE_BATCH, 2.0, clients=16,
+                                      engine=ssd_eng)
     summary["ssd"] = {"requests": len(xs), "batches": ssd_stats["batches"],
-                      "captured": False, "host_syncs": ssd_stats["host_syncs"],
-                      "launches": ssd_counts}
-    log(f"serving ssd ({smi}): b{SSD_SERVE_BATCH} served uncaptured ({ssd_stats['host_syncs']}), "
-        f"{len(xs)} (100, 6) detection rows equal to the direct forward; launches {ssd_counts}")
+                      "captured": True, "build_launches": build_counts, "load": load}
+    log(f"serving ssd ({smi}): b{SSD_SERVE_BATCH} served captured, {len(xs)} (100, 6) "
+        f"detection rows equal to the direct forward; start() launched {build_counts}, the "
+        f"replays none; serving_load {load['img_per_s']:.1f} img/s, p50 {load['p50_ms']:.3f} "
+        f"p99 {load['p99_ms']:.3f} ms, occupancy {load['avg_occupancy']:.3f}, captured "
+        f"{load['captured']}")
     del ssd_eng, srv
     # (f) the serving and engine benches, the time split
     bench = {"serving_b64": serving_bench.serving_load(graph, params, 64, 4.0, clients=24,
@@ -2884,6 +2970,8 @@ def phase_tools(engines, unfused, art, images, smi: str) -> dict:
     for row in rows:
         log(f"tools ssd_cases: {json.dumps(row)}")
     dets = {r["case"]: r["mean_final_dets_per_img"] for r in rows}
+    if not all(r["captured"] for r in rows):
+        raise RuntimeError(f"tools ssd_cases: a case ran uncaptured: {rows}")
     if not dets["background"] < dets["random"]:
         raise RuntimeError(f"tools ssd_cases: background {dets['background']} detections an "
                            f"image, not below random's {dets['random']}")
@@ -3013,7 +3101,8 @@ def main() -> int:
     check_gemm_variants(stats)
     check_pot4_variants(stats)
     zoo["qlrn_exact_path"] = {"elements": stats.qlrn_exact[1], "exact": stats.qlrn_exact[0]}
-    zoo["ssd"] = phase_ssd(stats)
+    ssd_launches, zoo["ssd"] = phase_ssd(stats)
+    launches["nms"], launches_from["nms"] = ssd_launches["nms"], "ssd random b64"
     zoo["vit_b16_cls_384"] = phase_vit384(stats)
     zoo["coverage"] = phase_coverage()
     zoo["transform"] = phase_transform(stats)

@@ -2,9 +2,9 @@
 (on the CPU the warm-up forward alone), ``donate_inputs`` (the port of
 tests/test_engine_donation.py's ``test_donated_engine_matches_nondonated``
 on the parity harness's small artifact), ``predecode=False`` (every int8
-node against the reference Engine with the same flag), the graphs a CUDA
-graph cannot capture, and the stems the stem kernel's plan has no launch
-for (k 9, cout 288) through ``fused_qstem`` and an Engine. Tolerance 0."""
+node against the reference Engine with the same flag), and the stems the
+stem kernel's plan has no launch for (k 9, cout 288) through
+``fused_qstem`` and an Engine. Tolerance 0."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +23,6 @@ from tf2_tpu.transform import fold_batch_norm as ref_fold
 from tf2_tpu.transform import quantize_graph as ref_quantize_graph
 from tf2_tpu_torch.bench import coverage_cases
 from tf2_tpu_torch.graph import execute
-from tf2_tpu_torch.graph.execute import host_syncs
 from tf2_tpu_torch.kernels import qstem
 from tf2_tpu_torch.models import synthetic_quantized
 from tf2_tpu_torch.runtime import Engine
@@ -129,18 +128,6 @@ def test_predecode_false_keeps_the_quantize_and_the_stem_apart(case):
     assert ops[0] == "quantize" and "s_in" not in eng.graph.nodes[1].attrs
     assert all(n.attrs.get("wfmt") != "wpack2" for n in eng.graph.nodes)
     np.testing.assert_array_equal(eng.run(image=case["x"]).numpy(), case["ref_logits"])
-
-
-def test_host_syncs_names_the_nms():
-    """SSD's NMS waits on the host every round: a CUDA graph cannot capture
-    it (``Engine.build`` raises on the card); the CNNs have none. On the
-    CPU ``build`` is the warm-up alone and runs."""
-    ssd = synthetic_quantized("ssd", seed=0, batch=1, image=128)
-    syncs = host_syncs(ssd.graph)
-    assert len(syncs) == 1 and "nms" in syncs[0] and "host" in syncs[0]
-    assert host_syncs(synthetic_quantized("resnet50", seed=0, **SMALL).graph) == []
-    eng = Engine(ssd.graph, ssd.params, device="cpu").build()
-    assert not eng.built and eng.run().shape == (1, 100, 6)
 
 
 def _ref_stem(x_q, w_q, es, eb, relu, padding):

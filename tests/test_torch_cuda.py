@@ -139,7 +139,7 @@ def test_engine_every_node_equals_plain(cuda):
     assert kernels.launch_counts() == {"qmatmul_pot4": 9, "qmatmul_int8": 1,
                                        "qconv_s1": 1, "qconv_s2": 6, "qblockchain": 0,
                                        "qlrn": 0, "qattention": 0,
-                                       "qconv_s2x1": 0, "qstem": 1}
+                                       "qconv_s2x1": 0, "qstem": 1, "nms": 0}
     assert eng.stem_nodes == {"conv1_relu"}
     assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
@@ -229,7 +229,7 @@ def test_block_fused_engine_every_node_equals_plain(cuda):
     assert kernels.launch_counts() == {"qmatmul_pot4": 6, "qmatmul_int8": 1,
                                        "qconv_s1": 0, "qconv_s2": 6, "qblockchain": 4,
                                        "qlrn": 0, "qattention": 0,
-                                       "qconv_s2x1": 0, "qstem": 1}
+                                       "qconv_s2x1": 0, "qstem": 1, "nms": 0}
     assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
@@ -586,7 +586,7 @@ def test_vit_engine_every_node_equals_plain(cuda, name, weight_bits):
     assert kernels.launch_counts() == {"qmatmul_pot4": pot4, "qmatmul_int8": 10 - pot4,
                                        "qconv_s1": 0, "qconv_s2": 0, "qblockchain": 0,
                                        "qlrn": 0, "qattention": 2,
-                                       "qconv_s2x1": 0, "qstem": 0}
+                                       "qconv_s2x1": 0, "qstem": 0, "nms": 0}
     assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
@@ -601,10 +601,10 @@ def test_vit_engine_every_node_equals_plain(cuda, name, weight_bits):
 @pytest.mark.parametrize("name,image,launches", [
     ("googlenet", 64, {"qmatmul_pot4": 37, "qmatmul_int8": 1, "qconv_s1": 19,
                        "qconv_s2": 0, "qblockchain": 0, "qlrn": 2, "qattention": 0,
-                       "qconv_s2x1": 0, "qstem": 1}),
+                       "qconv_s2x1": 0, "qstem": 1, "nms": 0}),
     ("squeezenet_v1_1", 96, {"qmatmul_pot4": 16, "qmatmul_int8": 1, "qconv_s1": 8,
                              "qconv_s2": 0, "qblockchain": 0, "qlrn": 0, "qattention": 0,
-                             "qconv_s2x1": 0, "qstem": 1}),
+                             "qconv_s2x1": 0, "qstem": 1, "nms": 0}),
 ])
 def test_zoo_engines_every_node_equals_plain(cuda, name, image, launches):
     """GoogLeNet and SqueezeNet at batch 2 on the card, merge_1x1 off and
@@ -778,7 +778,8 @@ def test_stem_engines_every_node_equals_plain(cuda):
     default = Engine(art.graph, art.params, block_fusion=False).run(image=x)
     # the unfused Engine's counts, its stem (one qstem launch) taken off
     base = {"qmatmul_pot4": 9, "qmatmul_int8": 1, "qconv_s1": 1, "qconv_s2": 6,
-            "qblockchain": 0, "qlrn": 0, "qattention": 0, "qconv_s2x1": 0, "qstem": 0}
+            "qblockchain": 0, "qlrn": 0, "qattention": 0, "qconv_s2x1": 0, "qstem": 0,
+            "nms": 0}
     for flag, moved in (("phase_stem", {"qconv_s2x1": 1}), ("optimize", {"qconv_s1": 2})):
         eng = Engine(art.graph, art.params, block_fusion=False, **{flag: True})
         kernels.reset_launch_counts()
@@ -798,8 +799,9 @@ def test_stem_engines_every_node_equals_plain(cuda):
 @pytest.mark.parametrize("case", ["random", "background"])
 def test_ssd_engine_every_node_equals_plain(cuda, case):
     """A small SSD (image 128) on the card under both score cases: 8
-    qconv_s1, 5 qconv_s2 and 1 qstem launches a forward, every node equal
-    to the plain path, detections equal to the Engine on the CPU."""
+    qconv_s1, 5 qconv_s2, 1 qstem and 1 nms launches a forward, every node
+    equal to the plain path (the NMS's keep mask there the plain
+    fixpoint), detections equal to the Engine on the CPU."""
     from tf2_tpu_torch.bench.ssd_cases import case_params
     from tf2_tpu_torch.graph import execute
     from tf2_tpu_torch.models import synthetic_quantized
@@ -812,8 +814,8 @@ def test_ssd_engine_every_node_equals_plain(cuda, case):
     kernels.reset_launch_counts()
     dets = eng.run(image=x)
     counts = kernels.launch_counts()
-    assert (counts["qconv_s1"], counts["qconv_s2"], counts["qstem"]) == (8, 5, 1)
-    assert sum(counts.values()) == 14
+    assert [counts[k] for k in ("qconv_s1", "qconv_s2", "qstem", "nms")] == [8, 5, 1, 1]
+    assert sum(counts.values()) == 15
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
@@ -926,15 +928,118 @@ def test_donated_built_engine_equals_nondonated(cuda):
 
 
 @pytest.mark.cuda
-def test_ssd_build_raises_its_reason(cuda):
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("case", ["random", "background"])
+def test_ssd_built_engine_equals_eager(cuda, batch, case):
+    """SSD's Engine builds into one CUDA graph, its NMS included: the
+    build launches twice a forward's kernels (one nms a forward), three
+    replays on seeded inputs launch none and equal the eager forward's
+    detections bit for bit."""
+    from tf2_tpu_torch.bench.ssd_cases import case_params
     from tf2_tpu_torch.models import synthetic_quantized
     from tf2_tpu_torch.runtime import Engine
 
-    art = synthetic_quantized("ssd", seed=0, batch=1, image=128)
-    eng = Engine(art.graph, art.params)
-    with pytest.raises(RuntimeError, match="waits on the host.*nms"):
-        eng.build()
-    assert not eng.built and tuple(eng.run().shape) == (1, 100, 6)
+    art = synthetic_quantized("ssd", seed=0, batch=batch, image=128)
+    params = case_params(case, art.graph, art.params)
+    xs = _images(cuda, 3, batch=batch, image=128, seed=batch)
+    eager = Engine(art.graph, params)
+    want = [eager.run(image=x) for x in xs]
+    kernels.reset_launch_counts()
+    eager.run(image=xs[0])
+    per_forward = kernels.launch_counts()
+    assert per_forward["nms"] == 1
+    eng = Engine(art.graph, params)
+    kernels.reset_launch_counts()
+    assert eng.build(image=xs[0]).built
+    assert kernels.launch_counts() == {k: 2 * v for k, v in per_forward.items()}
+    kernels.reset_launch_counts()
+    got = [eng.run(image=x) for x in xs]
+    assert set(kernels.launch_counts().values()) == {0}
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == (batch, 100, 6) and torch.equal(g, w)
+
+
+# ---- the NMS keep-mask kernel (csrc/nms.cu) ----
+
+def _nms_rows(rng, rows, k, kind):
+    """(rows, k, 4) f32 xyxy boxes of one kind: ``random`` (uniform corners),
+    ``ssd`` (boxes around a coarse grid of centres, as SSD's priors
+    decoded: many overlaps, deep chains), ``zero`` (all-zero boxes),
+    ``same`` (one box repeated), ``chain`` (each box overlapping only its
+    neighbours above the threshold), ``special`` (inf and NaN corners)."""
+    if kind == "random":
+        lo = rng.uniform(0, 1, (rows, k, 2))
+        return np.concatenate([lo, lo + rng.uniform(0, 0.5, (rows, k, 2))], -1).astype(np.float32)
+    if kind == "ssd":
+        c = rng.integers(0, 4, (rows, k, 2)) / 4 + rng.normal(0, 0.02, (rows, k, 2))
+        wh = rng.uniform(0.1, 0.4, (rows, k, 2))
+        return np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    if kind == "zero":
+        return np.zeros((rows, k, 4), np.float32)
+    if kind == "same":
+        return np.broadcast_to(np.float32([0.1, 0.2, 0.5, 0.7]), (rows, k, 4)).copy()
+    if kind == "chain":
+        x = np.arange(k, dtype=np.float32)[None, :] * 0.3
+        x = np.broadcast_to(x, (rows, k))
+        return np.stack([x, np.zeros_like(x), x + 1, np.ones_like(x)], -1).astype(np.float32)
+    boxes = _nms_rows(rng, rows, k, "random")
+    boxes.reshape(-1)[rng.integers(0, boxes.size, boxes.size // 50)] = np.inf
+    boxes.reshape(-1)[rng.integers(0, boxes.size, boxes.size // 50)] = -np.inf
+    boxes.reshape(-1)[rng.integers(0, boxes.size, boxes.size // 50)] = np.nan
+    return boxes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ssd", "zero", "same", "chain", "special"])
+@pytest.mark.parametrize("rows,k", [(1280, 100), (1280, 200), (3, 1), (5, 31), (7, 257),
+                                    (2, 1008), (2, 2000)])
+@pytest.mark.parametrize("thresh", [0.45, 0.1])
+def test_nms_kernel_matches_plain(cuda, kind, rows, k, thresh):
+    """The kernel's keep mask equals the plain fixpoint's bit for bit, one
+    launch a call, on random, SSD-like and edge rows (SSD b64's 1,280 rows
+    of 100; k 1, 31, 257, 1,008, 2,000: not a multiple of 32, above the
+    block size)."""
+    from tf2_tpu_torch.kernels import detection
+
+    boxes = torch.as_tensor(_nms_rows(np.random.default_rng(k + rows), rows, k, kind)).to(cuda)
+    before = kernels.launch_counts()["nms"]
+    got = detection.greedy_keep(boxes, thresh)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["nms"] == before + 1
+    assert got.dtype == torch.bool and torch.equal(got, detection.greedy_keep_plain(boxes, thresh))
+    if kind == "chain" and thresh == 0.45:  # IoU 0.54 with a neighbour, 0.25 one further
+        assert got[0, ::2].all() and not got[0, 1::2].any()
+
+
+@pytest.mark.cuda
+def test_nms_kernel_at_the_threshold(cuda):
+    """IoUs exactly at the threshold: 1 / 2 (boxes 0 and 1) against 0.5 and
+    f32(0.1) = 1 / 10 (boxes 0 and 2) against 0.1 (compared in f32, as
+    torch and JAX compare) keep the box; the kernel agrees with the plain
+    version."""
+    from tf2_tpu_torch.kernels import detection
+
+    boxes = torch.tensor([[[0, 0, 1, 1], [0, 0, 2, 1], [0, 0, 10, 1]]], dtype=torch.float32,
+                         device=cuda)
+    for thresh, want in ((0.5, [True, True, True]), (0.1, [True, False, True]),
+                         (0.0999, [True, False, False])):
+        got = detection.greedy_keep(boxes, thresh)
+        assert got[0].tolist() == want, thresh
+        assert torch.equal(got, detection.greedy_keep_plain(boxes, thresh))
+
+
+@pytest.mark.cuda
+def test_nms_kernel_refuses_what_it_does_not_take(cuda):
+    from tf2_tpu_torch.kernels import detection
+
+    big = torch.zeros((1, detection.max_k() + 1, 4), device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        detection.greedy_keep(big, 0.45)
+    with pytest.raises(ValueError, match="dtype"):
+        detection.greedy_keep(torch.zeros((1, 8, 4), device=cuda, dtype=torch.float64), 0.45)
+    with pytest.raises(ValueError, match="contiguous"):
+        detection.greedy_keep(torch.zeros((8, 2, 4), device=cuda).transpose(0, 1), 0.45)
+    assert detection.max_k() >= 1008
 
 
 @pytest.mark.cuda

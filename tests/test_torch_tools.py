@@ -238,6 +238,20 @@ def test_replay_join_by_order_and_name(tmp_path):
     assert rep["top_device_ops"][0]["node"] == "fc"
 
 
+def test_replay_join_takes_a_copy_kernel_as_a_copy(tmp_path):
+    """A copy node that CUDA runs as a kernel of its own (``memcpy128``:
+    an eager forward's device-to-device memcpy, as SSD's sorts make) is an
+    in-graph copy, outside the kernel sequence."""
+    names = [k for k, _ in EAGER]
+    ops = profile_trace.device_ops(
+        _written(tmp_path, "replay.json", _replay_trace(names[:3] + ["memcpy128"] + names[3:])))
+    forwards = profile_trace.replay_forwards(ops, list(EAGER))
+    for fwd in forwards:
+        assert [op["node"] for op in fwd] == ["<copy in>", "<memset (graph)>", "conv1_relu",
+                                              "maxpool_0", "chain_0", "<memcpy (graph)>", "fc",
+                                              "<copy out>"]
+
+
 @pytest.mark.parametrize("names", [
     [k for k, _ in EAGER][:-1],                               # one kernel short
     [k for k, _ in EAGER] + ["extra"],                        # one more

@@ -9,8 +9,7 @@ Makes each model's artifact with the port's Transform Kit CLI
 calibration batch 2, two batches) into a cache under the temporary
 directory whose name holds the port's name (``ensure_artifact``; a
 cached artifact that older sources made is rebuilt). Then for each batch:
-the default Engine, built (one CUDA graph; SSD, whose NMS waits on the
-host, eager), timed by ``Engine.benchmark`` (CUDA events; 10 forwards a
+the default Engine, built (one CUDA graph, SSD's NMS included), timed by ``Engine.benchmark`` (CUDA events; 10 forwards a
 run at batch > 8, else 64; the median of 3 runs), and the speed of light of
 the artifact's graph at that batch (``bench/roofline.analyze``, the data
 sheet's peaks). Prints one JSON row a (model, batch), with
@@ -101,20 +100,16 @@ def bench_row(model: str, batch: int, wbits: int, image: int, prune: float, late
 def measure(model: str, graph, params, batch: int, wbits: int, image: int, prune: float,
             card: str) -> dict:
     """The row of one model at one batch on the card: the default Engine,
-    built where its forward does not wait on the host, timed by
-    ``Engine.benchmark``."""
+    built, timed by ``Engine.benchmark``."""
     import numpy as np
     import torch
 
-    from ..graph.execute import host_syncs
     from ..runtime import Engine
 
     g = graph.with_batch_size(batch)
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
         tuple(g.inputs["image"].shape), dtype=np.float32)).cuda()
-    eng = Engine(g, params)
-    if not host_syncs(eng.graph):
-        eng.build(image=x)
+    eng = Engine(g, params).build(image=x)
     stats = eng.benchmark(iters=10 if batch > 8 else 64, reps=3, image=x)
     return bench_row(model, batch, wbits, image, prune, stats["latency_s"], g, eng.built,
                      card)

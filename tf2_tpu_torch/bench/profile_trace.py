@@ -21,15 +21,17 @@ nodes:
   same kernels in the same order: the i-th kernel of a replay is the i-th
   kernel of an eager forward of the same Engine (``Engine.eager``). The
   join checks that both sequences have the same length and names and
-  raises otherwise. Memsets and memcpys inside the graph, the input's
-  copy in and the output's copy out are rows of their own (``<...>``).
+  raises otherwise. Memsets and memcpys inside the graph (a copy node that
+  CUDA may run as a kernel of its own, ``memcpy128``: SSD's sorts copy
+  their input so), the input's copy in and the output's copy out are rows
+  of their own (``<...>``).
 
 Each report (a batch) has ``benchmark_ms`` (``Engine.benchmark`` on the
 built Engine), ``device_ms_per_forward`` (the union of the device ops'
 intervals, ``runtime/profile.summarize``), ``attributed_share`` (the share
 of kernel time that lands on a node), ``per_node_ms`` (sorted),
-``top_device_ops``. SSD's forward waits on the host (its NMS), so it is
-never built: it is profiled eager, and the report says so. Written to
+``top_device_ops``. Every model is built (SSD too: its NMS is a kernel).
+Written to
 ``--out`` (default: the git-ignored ``bench/out/profile_trace_<model>.json``).
 """
 from __future__ import annotations
@@ -38,6 +40,7 @@ import argparse
 import bisect
 import json
 import os
+import re
 import tempfile
 import time
 from pathlib import Path
@@ -46,6 +49,10 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 OUT_DIR = Path(__file__).with_name("out")   # the default --out's directory, git-ignored
 STEPS = 5
+# a graph's copy or set node that CUDA runs as a kernel of its own (a
+# device-to-device copy in a replay: "memcpy128"); an eager forward has the
+# same copy as a memcpy, outside the kernel sequence
+COPY_KERNEL = re.compile(r"(memcpy|memset)\w*")
 
 
 def load_events(path: str) -> list[dict]:
@@ -122,15 +129,18 @@ def replay_forwards(ops: list[dict], sequence: list[tuple[str, str]],
     built Engine), each given its ``node``: the i-th kernel of the graph
     launch that of ``sequence``'s i-th (``kernel_sequence`` of an eager
     forward), after checking that both have the same length and names
-    (else ``ValueError``); memsets and memcpys in the graph
-    ``<memset (graph)>``/``<memcpy (graph)>``; the other ops before the graph
-    ``<copy in>``, after it ``<copy out>``."""
+    (else ``ValueError``); memsets and memcpys in the graph, CUDA's copy
+    kernels (``COPY_KERNEL``) too, ``<memset (graph)>``/``<memcpy
+    (graph)>``; the other ops before the graph ``<copy in>``, after it
+    ``<copy out>``."""
     out = []
     for ops_i in eager_forwards(ops, label):
         graph_ops = [op for op in ops_i if op["launch"] and "GraphLaunch" in op["launch"]]
         if not graph_ops:
             raise ValueError(f"{_step(ops_i[0], label)}: no graph launch in the range")
-        kernels = [op for op in graph_ops if op["cat"] == "kernel"]
+        copies = {id(op): m.group(1) for op in graph_ops if op["cat"] == "kernel"
+                  for m in [COPY_KERNEL.fullmatch(op["name"])] if m}
+        kernels = [op for op in graph_ops if op["cat"] == "kernel" and id(op) not in copies]
         names = [op["name"] for op in kernels]
         want = [name for name, _ in sequence]
         if names != want:
@@ -149,7 +159,7 @@ def replay_forwards(ops: list[dict], sequence: list[tuple[str, str]],
             if id(op) in node_of:
                 node = node_of[id(op)]
             elif id(op) in in_graph:
-                node = f"<{op['cat'].removeprefix('gpu_')} (graph)>"
+                node = f"<{copies.get(id(op)) or op['cat'].removeprefix('gpu_')} (graph)>"
             else:
                 node = "<copy in>" if op["ts"] < first else "<copy out>" if op["ts"] > last \
                     else "<outside>"
@@ -256,7 +266,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_trace: no CUDA device")
-    from ..graph.execute import host_syncs
     from ..kernels import autotune
     from ..models import synthetic_quantized
     from ..runtime import Engine, compile_cache
@@ -273,12 +282,8 @@ def main(argv=None) -> int:
             eng = Engine(art.graph.with_batch_size(b), art.params)
             x = torch.as_tensor(np.random.default_rng(0).standard_normal(
                 (b, image, image, 3), dtype=np.float32)).cuda()
-            syncs = host_syncs(eng.graph)
-            if not syncs:
-                eng.build(image=x)
+            eng.build(image=x)
             r = profile_engine(eng, x, trace_dir, f"profile_trace_{args.model}_b{b}", args.steps)
-            if syncs:
-                r["note"] = "not built: its forward waits on the host (" + "; ".join(syncs) + ")"
             report[f"b{b}"] = r
             print(json.dumps({k: v for k, v in r.items()
                               if k not in ("per_node_ms", "top_device_ops", "by_family")}),

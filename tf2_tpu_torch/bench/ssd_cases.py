@@ -15,10 +15,10 @@ runs them (its :34-106), one copy for the tests and ``chip_smoke.py``.
         [--fg-bias 3.0] [--out FILE]
 
 On the card: SSD W4 at 256x256, 21 classes (the port's CLI artifact,
-``models_bench.ensure_artifact``), one eager Engine a case (its NMS waits
-on the host, so it is never built): ``img_per_s`` and ``ms_per_batch``
-from ``Engine.benchmark``, ``mean_final_dets_per_img`` (score > 0.01), the
-card's name and power limit. One JSON line a case; the report goes to
+``models_bench.ensure_artifact``), one built Engine a case (one CUDA graph,
+its NMS included): ``img_per_s`` and ``ms_per_batch`` of the captured
+forward from ``Engine.benchmark``, ``mean_final_dets_per_img`` (score >
+0.01), the card's name and power limit. One JSON line a case; the report goes to
 ``--out`` (default: the git-ignored ``bench/out/ssd_cases.json``).
 """
 from __future__ import annotations
@@ -67,7 +67,7 @@ def case_params(case: str, graph, params, bg_bias: float = 8.0, fg_bias: float =
 def run_cases(graph, params, batch: int = 64, bg_bias: float = 8.0, fg_bias: float = 3.0,
               iters: int = 10, reps: int = 3, card: str | None = None) -> list[dict]:
     """One row a case of ``CASES``: the artifact (``graph``, ``params``) at
-    ``batch`` on an eager Engine on the card, on one standard normal batch
+    ``batch`` on a built Engine on the card, on one standard normal batch
     (a CPU ``torch.Generator`` seeded 0)."""
     import torch
 
@@ -81,13 +81,13 @@ def run_cases(graph, params, batch: int = 64, bg_bias: float = 8.0, fg_bias: flo
     for case in CASES:
         eng = Engine(g, case_params(case, g, params, bg_bias, fg_bias))
         x_dev = x.to(eng.device)
-        dets = eng.run(image=x_dev)
+        dets = eng.build(image=x_dev).run(image=x_dev)
         stats = eng.benchmark(iters=iters, reps=reps, image=x_dev)
         rows.append({"case": case, "batch": batch,
                      "img_per_s": stats["throughput_per_s"],
                      "ms_per_batch": stats["latency_s"] * 1e3,
                      "mean_final_dets_per_img": float((dets[..., 4] > 0.01).sum()) / batch,
-                     "card": card})
+                     "captured": eng.built, "card": card})
     return rows
 
 

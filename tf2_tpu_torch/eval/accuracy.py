@@ -117,17 +117,14 @@ def _transformed(model: str, wbits: int, batch: int, image: int, classes: int, s
 def _forwards(art, fg, fp, device, example):
     """fp32(x), quant(x) -> numpy outputs: the folded FP32 graph by
     ``execute`` on ``device`` with TF32 off, and the artifact's Engine,
-    built on ``example`` on the card where its forward can be captured
-    (``graph/execute.host_syncs`` empty), else eager."""
-    from ..graph.execute import execute, host_syncs, no_tf32
+    built on ``example`` (captured on the card)."""
+    from ..graph.execute import execute, no_tf32
     from ..runtime import Engine
     from ..transform.calibrate import _on
 
     fp_dev = _on(fp, device)
     fp_fn = execute(fg)
-    eng = Engine(art.graph, art.params, device=device)
-    if device.type == "cuda" and not host_syncs(eng.graph):
-        eng.build(image=example)
+    eng = Engine(art.graph, art.params, device=device).build(image=example)
 
     def fp32(x):
         with no_tf32():
@@ -168,7 +165,7 @@ def detection_eval(wbits: int = 4, batches: int = 4, batch: int = 2, image: int 
     """SSD's quantized detections scored against the FP32-folded model's
     own post-NMS detections above ``score_thresh`` (no detection dataset
     ships): VOC AP at IoU 0.5 a (image, class) pair the FP32 model
-    detects, averaged. The Engine runs eager (the NMS waits on the host).
+    detects, averaged. The Engine is built (its NMS captured with the rest).
     mAP near 1: quantization kept the detector's behaviour."""
     from ..runtime.engine import resolve_device
 

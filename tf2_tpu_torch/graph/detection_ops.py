@@ -1,5 +1,6 @@
-"""Executors of the detection-head ops (``box_decode``, ``nms``), plain
-PyTorch on the device the tensors live on (``kernels/detection.py``)."""
+"""Executors of the detection-head ops (``box_decode``, ``nms``) on the
+device the tensors live on (``kernels/detection.py``): the NMS's greedy
+keep mask is a kernel (``plain``: its plain version)."""
 from __future__ import annotations
 
 from ..kernels import detection
@@ -12,10 +13,9 @@ def _box_decode(node, params, loc):
                                   tuple(node.attrs.get("variances", (0.1, 0.2))))
 
 
-@register_op("nms", host_sync="the greedy keep mask is a fixpoint whose every round "
-                             "compares on the host (kernels/detection.py: greedy_keep)")
-def _nms(node, params, boxes, scores):
+@register_op("nms", kernel=True)
+def _nms(node, params, boxes, scores, plain=False):
     return detection.batched_nms(
         boxes, scores, max_out=node.attrs.get("max_out", 100),
         topk=node.attrs.get("topk", 200), iou_thresh=node.attrs.get("iou_thresh", 0.45),
-        score_thresh=node.attrs.get("score_thresh", 0.01))
+        score_thresh=node.attrs.get("score_thresh", 0.01), plain=plain)

@@ -8,8 +8,7 @@ the kernels, on any device, as the reference a kernel run is held against;
 Engine's coverage plan: the nodes no kernel takes), and
 ``execute(graph, library_nodes=names)`` runs the named dense and 1x1 conv
 nodes on the ``library`` route (``torch._int_mm``; the Engine's routes,
-``kernels/dispatch.py``). An op whose executor waits on the host is
-registered with the reason (``host_sync``); ``host_syncs`` lists a graph's.
+``kernels/dispatch.py``).
 ``execute(graph, gather_nodes=names, gather=fn)`` passes each named node's
 output through ``fn`` before any later node reads it (a tp-meshed Engine's
 all-gather of the output channels, ``parallel/mesh.py``).
@@ -29,24 +28,14 @@ Params = Mapping[str, torch.Tensor]
 
 # op name -> (fn(node, params, *inputs[, plain=]), takes_plain)
 _OP_IMPLS: dict[str, tuple[Callable, bool]] = {}
-# op name -> why its executor waits on the host
-_HOST_SYNC: dict[str, str] = {}
 _LIBRARY = {"qconv2d": dispatch.qconv2d_library, "qdense": dispatch.qdense_library}
 
 
-def register_op(name: str, kernel: bool = False, host_sync: str | None = None):
+def register_op(name: str, kernel: bool = False):
     def deco(fn):
         _OP_IMPLS[name] = (fn, kernel)
-        if host_sync:
-            _HOST_SYNC[name] = host_sync
         return fn
     return deco
-
-
-def host_syncs(graph: Graph) -> list[str]:
-    """"<node> (<op>): <reason>" for each node whose executor waits on the
-    host, which a CUDA graph cannot capture."""
-    return [f"{n.name} ({n.op}): {_HOST_SYNC[n.op]}" for n in graph.nodes if n.op in _HOST_SYNC]
 
 
 # f32 ops whose result is not one correctly rounded step (sums in an order

@@ -1,19 +1,32 @@
-"""Detection post-processing: SSD prior-box decode and batched greedy NMS,
-plain PyTorch on the tensors' device (the reference's is jnp under XLA,
-``tf2_tpu/kernels/detection.py``, not a Pallas kernel).
+"""Detection post-processing: SSD prior-box decode and batched greedy NMS
+(the reference's is jnp under XLA, ``tf2_tpu/kernels/detection.py``, not a
+Pallas kernel). The decode and the candidate selection are plain PyTorch on
+the tensors' device; the greedy keep mask is the ``csrc/nms.cu`` kernel on
+a CUDA tensor (``greedy_keep``), its plain version on a CPU tensor.
 
 Every image and class is one row of batched tensors, as the reference's
 ``vmap``: candidates are sorted with a stable descending sort, so equal
 scores keep the lower index first as ``jax.lax.top_k`` does (dequantized
-int8 logits make many scores equal); the greedy keep mask is the fixpoint
-of keep[i] = not any(keep[j] and IoU(j, i) > thresh for j < i), reached by
-iterating from all-kept over the whole (k, k) matrix. Each f32 step is one
-IEEE operation and the exp is taken in float64 and rounded once, so the
-card and the CPU give the same bits.
+int8 logits make many scores equal). The kernel sweeps each row greedily
+in shared memory, with no wait on the host and no (k, k) IoU matrix, so a
+CUDA graph captures the whole head. The plain version
+(``greedy_keep_plain``) reaches the same mask as the fixpoint of
+keep[i] = not any(keep[j] and IoU(j, i) > thresh for j < i), iterated from
+all-kept over the whole (k, k) matrix, each round compared on the host.
+Each f32 step is one IEEE operation (the kernel's too) and the exp is
+taken in float64 and rounded once, so the card and the CPU give the same
+bits.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
+
+from . import build
+
+LAUNCHES = {"nms": 0}
 
 
 def decode_boxes(loc: torch.Tensor, priors: torch.Tensor,
@@ -64,12 +77,13 @@ def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(table, -2, idx[..., None].expand(*idx.shape, table.shape[-1]))
 
 
-def greedy_keep(boxes: torch.Tensor, iou_thresh: float) -> torch.Tensor:
-    """Greedy NMS keep mask over score-sorted candidates (..., k, 4): a box
-    is kept unless a kept box before it overlaps it above ``iou_thresh``.
-    The suppression matrix is strictly upper triangular, so the iteration
-    from all-kept settles on the one fixpoint within k + 1 rounds; it stops
-    at the first round that changes nothing."""
+def greedy_keep_plain(boxes: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """Plain version of the kernel, on any device (``meta`` too): greedy
+    NMS keep mask over score-sorted candidates (..., k, 4), a box kept
+    unless a kept box before it overlaps it above ``iou_thresh``. The
+    suppression matrix is strictly upper triangular, so the iteration from
+    all-kept settles on the one fixpoint within k + 1 rounds; it stops at
+    the first round that changes nothing (a wait on the host a round)."""
     k = boxes.shape[-2]
     sup = (iou_matrix(boxes) > iou_thresh) & torch.ones(
         (k, k), dtype=torch.bool, device=boxes.device).triu(1)
@@ -84,30 +98,91 @@ def greedy_keep(boxes: torch.Tensor, iou_thresh: float) -> torch.Tensor:
     return keep
 
 
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.library("nms.cu")
+    lib.tf2_nms_keep.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_float, ctypes.c_void_p]
+    lib.tf2_nms_keep.restype = ctypes.c_int
+    lib.tf2_nms_max_k.argtypes, lib.tf2_nms_max_k.restype = [], ctypes.c_int
+    return lib
+
+
+@functools.cache
+def max_k() -> int:
+    """The most candidates a row the kernel takes (one row in one block's
+    shared memory), from the library built for the card."""
+    return _lib().tf2_nms_max_k()
+
+
+def greedy_keep(boxes: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """The greedy keep mask (..., k) of score-sorted candidates (..., k, 4)
+    f32: the kernel on a CUDA tensor, the plain version on a CPU one (and
+    in the ``meta`` shape pass). Raises on a CUDA tensor the kernel does
+    not take (not contiguous f32, or k above ``max_k()``)."""
+    if boxes.device.type in ("cpu", "meta"):
+        return greedy_keep_plain(boxes, iou_thresh)
+    build.check_operands(boxes.device, boxes=(boxes, torch.float32,
+                                              (*boxes.shape[:-1], 4)))
+    k = boxes.shape[-2]
+    if k > max_k():
+        raise ValueError(f"nms kernel: {k} candidates a row, at most {max_k()}")
+    keep = torch.empty(boxes.shape[:-1], dtype=torch.bool, device=boxes.device)
+    if keep.numel() == 0:
+        return keep
+    rc = _lib().tf2_nms_keep(boxes.data_ptr(), keep.data_ptr(), keep.numel() // k, k,
+                             build.f32(iou_thresh), build.raw_stream(boxes.device))
+    build.check_launch(rc, "nms")
+    LAUNCHES["nms"] += 1
+    return keep
+
+
+def sorted_candidates(boxes: torch.Tensor, scores: torch.Tensor,
+                      k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The top k of each row, score-sorted: boxes (..., A, 4), scores
+    (..., A) -> (boxes (..., k, 4), scores (..., k)). The boxes of
+    zero-score candidates are zeroed, as the reference's are: they sort
+    after every real candidate and, with IoU 0, suppress nothing. The boxes
+    come out contiguous, as the kernel takes them (a gather on an expanded
+    index leaves its strides)."""
+    scores_k, idx = top_k(scores, k)
+    boxes_k = _gather_rows(boxes, idx)
+    boxes_k = torch.where((scores_k > 0.0)[..., None], boxes_k, torch.zeros_like(boxes_k))
+    return boxes_k.contiguous(), scores_k
+
+
 def nms_single_class(boxes: torch.Tensor, scores: torch.Tensor, k: int,
                      iou_thresh: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Greedy NMS over the top k of one class, batched over leading axes.
     boxes (..., A, 4), scores (..., A). -> (boxes (..., k, 4), scores
-    (..., k), keep (..., k)), score-sorted. The boxes of zero-score
-    candidates are zeroed, as the reference's are: they sort after every
-    real candidate and, with IoU 0, suppress nothing."""
-    scores_k, idx = top_k(scores, k)
-    boxes_k = _gather_rows(boxes, idx)
-    boxes_k = torch.where((scores_k > 0.0)[..., None], boxes_k, torch.zeros_like(boxes_k))
+    (..., k), keep (..., k)), score-sorted (``sorted_candidates``)."""
+    boxes_k, scores_k = sorted_candidates(boxes, scores, k)
     return boxes_k, scores_k, greedy_keep(boxes_k, iou_thresh)
 
 
-def batched_nms(boxes: torch.Tensor, cls_scores: torch.Tensor, max_out: int = 100,
-                topk: int = 200, iou_thresh: float = 0.45,
-                score_thresh: float = 0.01) -> torch.Tensor:
-    """boxes (N, A, 4); cls_scores (N, A, C), class 0 the background.
-    -> (N, max_out, 6) [x1, y1, x2, y2, score, class], score-sorted, the
-    suppressed and thresholded candidates with score 0."""
+def class_rows(boxes: torch.Tensor, cls_scores: torch.Tensor, topk: int = 200,
+               score_thresh: float = 0.01) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rows ``batched_nms`` sweeps, one an image and foreground class:
+    boxes (N, A, 4), cls_scores (N, A, C) -> (boxes (N, C - 1, k, 4),
+    scores (N, C - 1, k)), k = min(topk, A), the scores below
+    ``score_thresh`` zeroed before the sort."""
     n, a, c = cls_scores.shape
-    k = min(topk, a)
     sc = cls_scores[..., 1:].transpose(1, 2)  # (N, C - 1, A), classes 1..C-1
     sc = torch.where(sc >= score_thresh, sc, torch.zeros_like(sc))
-    bk, sk, keep = nms_single_class(boxes[:, None].expand(n, c - 1, a, 4), sc, k, iou_thresh)
+    return sorted_candidates(boxes[:, None].expand(n, c - 1, a, 4), sc, min(topk, a))
+
+
+def batched_nms(boxes: torch.Tensor, cls_scores: torch.Tensor, max_out: int = 100,
+                topk: int = 200, iou_thresh: float = 0.45, score_thresh: float = 0.01,
+                plain: bool = False) -> torch.Tensor:
+    """boxes (N, A, 4); cls_scores (N, A, C), class 0 the background.
+    -> (N, max_out, 6) [x1, y1, x2, y2, score, class], score-sorted, the
+    suppressed and thresholded candidates with score 0. With ``plain`` the
+    keep mask is the plain version's on any device."""
+    n, _, c = cls_scores.shape
+    bk, sk = class_rows(boxes, cls_scores, topk, score_thresh)
+    k = sk.shape[-1]
+    keep = (greedy_keep_plain if plain else greedy_keep)(bk, iou_thresh)
     sk = torch.where(keep, sk, torch.zeros_like(sk))
     cls = torch.arange(1, c, dtype=torch.float32, device=boxes.device)
     dets = torch.cat([bk, sk[..., None], cls[None, :, None, None].expand(n, c - 1, k, 1)],

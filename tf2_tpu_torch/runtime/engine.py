@@ -4,8 +4,9 @@ and dense layer, each LRN and each attention core in one of the CUDA
 kernels (or on the route the routing table chose for it at load,
 ``kernels/autotune.py``), or, where the coverage plan made at load finds
 that no kernel takes a node, in its plain version on the card. SSD's box
-decode and NMS are plain PyTorch on the device (``kernels/detection.py``),
-as the reference's are XLA. ``Engine.build`` captures the whole forward in
+decode and candidate sort are plain PyTorch on the device and its greedy
+NMS mask a kernel (``kernels/detection.py``), where the reference's are
+XLA. ``Engine.build`` captures the whole forward in
 one CUDA graph, which later calls replay: the port's counterpart of the
 reference's jitted forward (``tf2_tpu/runtime/engine.py:180-196``)."""
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..graph.execute import execute, host_syncs
+from ..graph.execute import execute
 from ..graph.ir import Graph, Node, TensorSpec
 from ..graph.optimize import (fuse_bottleneck_chains, fuse_lrn_quantize,
                               fuse_stem_quantize, hoist_input_quantize,
@@ -444,20 +445,15 @@ class Engine:
         attributes); on the card, one CUDA graph of the whole forward is
         then captured over static input buffers, and ``__call__``, ``run``
         and ``benchmark`` replay it. On the CPU ``build`` is the warm-up
-        forward alone: nothing is captured. A graph whose forward waits on
-        the host (``graph.execute.host_syncs``: SSD's NMS) cannot be
-        captured, nor a tp-meshed forward (its all-gathers are collectives,
-        under gloo through the host): on the card ``build`` raises with the
+        forward alone: nothing is captured. Every model of the zoo captures,
+        SSD with its NMS (the keep mask is a kernel, no wait on the host); a
+        tp-meshed forward does not (its all-gathers are collectives, under
+        gloo through the host): on the card ``build`` raises with the
         reason. A capture that fails raises."""
-        if self.device.type == "cuda":
-            syncs = host_syncs(self.graph)
-            if syncs:
-                raise RuntimeError(f"{self.graph.name}: a CUDA graph cannot capture a forward "
-                                   "that waits on the host: " + "; ".join(syncs))
-            if self.tp_nodes:
-                raise RuntimeError(f"{self.graph.name}: a tp={self.mesh.tp} forward all-gathers "
-                                   f"the outputs of {len(self.tp_nodes)} nodes through "
-                                   "collectives; it runs eager")
+        if self.device.type == "cuda" and self.tp_nodes:
+            raise RuntimeError(f"{self.graph.name}: a tp={self.mesh.tp} forward all-gathers "
+                               f"the outputs of {len(self.tp_nodes)} nodes through "
+                               "collectives; it runs eager")
         x = self._inputs(example_inputs)
         self._graph = None
         if self.device.type != "cuda":

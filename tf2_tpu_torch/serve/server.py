@@ -3,10 +3,9 @@ end + health and stats, as the reference's ``tf2_tpu/serve/server.py``.
 
 - ``InferenceServer`` owns an Engine at a fixed batch size and a
   ContinuousBatcher feeding it. ``start()`` builds the Engine (one CUDA
-  graph on the card, which the batcher's thread then replays) unless its
-  forward waits on the host (``graph.execute.host_syncs``: SSD's NMS);
-  such an Engine serves its eager forward, on its device and its kernels,
-  and ``stats()`` says so (``captured``, ``host_syncs``).
+  graph on the card, which the batcher's thread then replays; SSD's too,
+  its NMS included), as the reference's server builds every Engine it
+  serves; ``stats()["captured"]`` says whether a replay serves.
 - Each batch's outputs come to the host once, in one copy a member; the
   batcher hands request ``i`` row ``i``.
 - HTTP endpoints (stdlib ``http.server``): POST /predict with the raw
@@ -25,7 +24,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from ..graph.execute import host_syncs
 from ..runtime.engine import Engine
 from .batcher import ContinuousBatcher
 
@@ -47,7 +45,6 @@ class InferenceServer:
             raise ValueError(f"engine graph batch {spec.shape[0]} != server batch {batch_size}")
         self._example_shape = tuple(spec.shape[1:])
         self._dtype = np.dtype(spec.dtype)
-        self.host_syncs = host_syncs(engine.graph)
         self.batcher = ContinuousBatcher(self._run, batch_size, self._example_shape,
                                          max_wait_s=max_wait_s, dtype=self._dtype)
         self._t_start = time.time()
@@ -56,8 +53,7 @@ class InferenceServer:
         return to_host(self.engine.run(**{self.input_name: torch.from_numpy(batch)}))
 
     def start(self) -> "InferenceServer":
-        if not self.host_syncs:
-            self.engine.build()
+        self.engine.build()
         self.batcher.start()
         return self
 
@@ -69,7 +65,6 @@ class InferenceServer:
         s["uptime_s"] = time.time() - self._t_start
         s["qps"] = s["requests"] / max(s["uptime_s"], 1e-9)
         s["captured"] = self.engine.built
-        s["host_syncs"] = self.host_syncs
         return s
 
     def stop(self):
