@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import build, dispatch, qconv, qlrn
+from ..runtime import spans
 from .ir import Graph, Node
 
 Params = Mapping[str, torch.Tensor]
@@ -107,9 +108,9 @@ def execute(graph: Graph, intermediates: bool = False, plain: bool = False,
                 for p in node.params:
                     if p not in wide_params:
                         wide_params[p] = _widen(params[p])
-            # per-node profiler scope: torch.profiler attributes host and
-            # device time to "<op>:<node>"
-            with torch.profiler.record_function(f"{node.op}:{node.name}"):
+            # per-node profiler scope (while a profiler runs): torch.profiler
+            # attributes host and device time to "<op>:<node>"
+            with spans.mirror(node.op, node.name):
                 if widen:
                     out = run_node(node, wide_params, *args)
                     out = out.to(torch.float32) if out.dtype == torch.float64 else out

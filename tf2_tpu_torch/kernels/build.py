@@ -20,6 +20,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..runtime import spans
+
 CSRC = Path(__file__).with_name("csrc")
 CACHE_ENV = "TF2TPU_TORCH_KERNEL_CACHE"
 DEFAULT_BUILD_DIR = Path(__file__).with_name("build")
@@ -49,10 +51,13 @@ def _target(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
 
 
+@spans.span("kernels.build_all")
 def build_all() -> dict[str, Path]:
     """Compile every source whose library is missing, in parallel. Returns
     source -> library path. nvcc's ptxas report (registers, spills) goes to
-    ``build/<stem>.log``. Raises on any compiler error."""
+    ``build/<stem>.log``. Raises on any compiler error. A set-up span,
+    ``kernels.build_all``; each nvcc job counts in ``kernels.compiled``
+    (``runtime/spans.py``)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {s: _target(s) for s in SOURCES}
     jobs = {}
@@ -63,6 +68,7 @@ def build_all() -> dict[str, Path]:
         jobs[src] = (out, tmp, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        spans.count("kernels.compiled")
     failed = []
     for src, (out, tmp, proc) in jobs.items():
         log, _ = proc.communicate()
@@ -77,9 +83,12 @@ def build_all() -> dict[str, Path]:
 
 
 def library(source: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<source>``."""
+    """The loaded library built from ``csrc/<source>``; its first load is a
+    set-up span, ``kernels.open``."""
     if source not in _LIBS:
-        _LIBS[source] = ctypes.CDLL(str(build_all()[source]))
+        path = build_all()[source]
+        with spans.span("kernels.open"):
+            _LIBS[source] = ctypes.CDLL(str(path))
     return _LIBS[source]
 
 

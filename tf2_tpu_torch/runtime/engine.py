@@ -27,6 +27,7 @@ from ..kernels import dispatch, qattention, qblocks, qconv, qlrn, qstem
 from ..parallel.mesh import (MeshConfig, all_gather_last, batch_bounds, channel_bounds,
                              gather_batch, input_shardings, local_node, tp_shardable)
 from ..transform import potq
+from . import spans
 
 
 def _decode_pot4(graph: Graph, params, names: set[str]):
@@ -271,6 +272,7 @@ class Engine:
     those of the Engine without donation.
     """
 
+    @spans.span("engine.init")
     def __init__(self, graph: Graph, params: Mapping[str, np.ndarray],
                  device: str | torch.device = "cuda", predecode: bool = True,
                  block_fusion: bool = True, merge_1x1: bool = False,
@@ -288,31 +290,32 @@ class Engine:
                 graph = graph.with_batch_size(self.rows[1] - self.rows[0])
         routes = {}
         if predecode:
-            routes = routes_of(graph, params, mesh)
-            graph, params = _predecode_fallback_weights(graph, params, routes)
-            graph, params = fuse_stem_quantize(graph, params)
-            graph, params = fuse_lrn_quantize(graph, params)
-            graph, params = hoist_input_quantize(graph, params)
-            if phase_stem:
-                graph, params = _phase_stem(graph, params)
-            if merge_1x1:
-                graph, params = _merge_1x1(graph, params)
-            if block_fusion:
-                graph, params = _fuse_chains(graph, params)
-            if optimize:
-                graph, params = _space_to_depth(graph, params)
+            with spans.span("engine.routes"):
+                routes = routes_of(graph, params, mesh)
+            with spans.span("engine.decode"):
+                graph, params = _predecode_fallback_weights(graph, params, routes)
+            passes = (("fuse_stem_quantize", fuse_stem_quantize, True),
+                      ("fuse_lrn_quantize", fuse_lrn_quantize, True),
+                      ("hoist_input_quantize", hoist_input_quantize, True),
+                      ("pack_phase_stem", _phase_stem, phase_stem),
+                      ("merge_sibling_1x1", _merge_1x1, merge_1x1),
+                      ("fuse_bottleneck_chains", _fuse_chains, block_fusion),
+                      ("space_to_depth_stem", _space_to_depth, optimize))
         else:
-            if block_fusion:
-                graph, params = fuse_bottleneck_chains(graph, params)
-            if optimize:
-                graph, params = space_to_depth_stem(graph, params)
+            passes = (("fuse_bottleneck_chains", fuse_bottleneck_chains, block_fusion),
+                      ("space_to_depth_stem", space_to_depth_stem, optimize))
+        for name, rewrite, on in passes:
+            if on:
+                with spans.span(f"engine.pass.{name}"):
+                    graph, params = rewrite(graph, params)
         self.tp_nodes = frozenset()
         shapes = None
         if mesh is not None and mesh.tp > 1:
-            # every node reads whole inputs (a sliced node's output is
-            # gathered): the plans take the shapes of the graph before the cut
-            shapes = activation_shapes(graph, params)
-            graph, params, self.tp_nodes = shard_tp(graph, params, mesh)
+            with spans.span("engine.pass.shard_tp"):
+                # every node reads whole inputs (a sliced node's output is
+                # gathered): the plans take the shapes of the graph before the cut
+                shapes = activation_shapes(graph, params)
+                graph, params, self.tp_nodes = shard_tp(graph, params, mesh)
         self.graph = graph
         # a routed node a later pass replaced (a merged or fused conv) takes
         # the route of what replaced it: kernel
@@ -321,13 +324,18 @@ class Engine:
         self.library_nodes = frozenset(k for k, r in self.routes.items()
                                        if r == "library" and dispatch.runs_gemm(kept[k], "int8"))
         on_card = self.device.type == "cuda"
-        self.plain_nodes = (self.plan(graph, params, Limits.of_card(), shapes) if on_card
-                            else frozenset())
-        self.stem_nodes = (self.stem_plan(graph, params, Limits.of_card(), shapes) if on_card
-                           else frozenset())
-        self.params = dispatch.prepare_weights(
-            graph, {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in params.items()},
-            self.stem_nodes)
+        limits = Limits.of_card() if on_card else None
+        with spans.span("engine.plan"):
+            self.plain_nodes = (self.plan(graph, params, limits, shapes) if on_card
+                                else frozenset())
+        with spans.span("engine.stem_plan"):
+            self.stem_nodes = (self.stem_plan(graph, params, limits, shapes) if on_card
+                               else frozenset())
+        with spans.span("engine.weights"):
+            self.params = dispatch.prepare_weights(
+                graph, {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                        for k, v in params.items()},
+                self.stem_nodes)
         self._fn = execute(graph, plain_nodes=self.plain_nodes, library_nodes=self.library_nodes,
                            gather_nodes=self.tp_nodes,
                            gather=lambda t: all_gather_last(mesh, t))
@@ -438,6 +446,7 @@ class Engine:
 
     # ---- build: the captured forward ----
 
+    @spans.span("engine.build")
     def build(self, **example_inputs) -> "Engine":
         """Warm up, then capture; returns self. One eager forward on the
         example (or zero) inputs builds the kernels and fills every cache a
@@ -457,18 +466,21 @@ class Engine:
         x = self._inputs(example_inputs)
         self._graph = None
         if self.device.type != "cuda":
-            self._fn(self.params, **x)
+            with spans.span("engine.build.warmup"):
+                self._fn(self.params, **x)
             return self
         static = {k: v.clone() for k, v in x.items()}
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):  # the warm-up, on the capture's stream
-            self._fn(self.params, **static)
-        stream.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            out = self._fn(self.params, **static)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
+        with spans.span("engine.build.warmup"):
+            with torch.cuda.stream(stream):  # the warm-up, on the capture's stream
+                self._fn(self.params, **static)
+            stream.synchronize()
+        with spans.span("engine.build.capture"):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                out = self._fn(self.params, **static)
+            torch.cuda.current_stream(self.device).wait_stream(stream)
         self._graph, self._static_in, self._static_out = graph, static, out
         return self
 
@@ -477,13 +489,18 @@ class Engine:
         """Does a call replay a captured forward?"""
         return self._graph is not None
 
-    def _replay(self, x: Mapping[str, torch.Tensor]):
+    def _replay(self, x: Mapping[str, torch.Tensor], call: int):
         """Copy ``x`` into the static inputs, replay the captured forward and
         return copies of its outputs, which the next replay does not
-        overwrite."""
+        overwrite. The copy and the replay are spans of the call span
+        ``call`` (0: each a call of its own)."""
+        step = spans.begin("engine.copy_in", call)
         for k, buf in self._static_in.items():
             buf.copy_(x[k])
+        spans.end(step)
+        step = spans.begin("engine.replay", call)
         self._graph.replay()
+        spans.end(step)
         out = self._static_out
         return tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()
 
@@ -508,15 +525,27 @@ class Engine:
 
     def __call__(self, **inputs):
         """Enqueue one forward (a replay after ``build``); returns before
-        the device finishes."""
-        if self._graph is not None:
-            x = self._captured_inputs(inputs)
-            out = self._replay(x)
-        else:
-            x = self._inputs(inputs)
-            out = self._fn(self.params, **x)
-        if self._donate:
-            self._drop(inputs, x, out)
+        the device finishes. Recorded as an ``engine.call`` span
+        (``runtime/spans.py``) with two steps: ``engine.copy_in``, the
+        inputs into the Engine's (the host waits for the copy), and
+        ``engine.replay``, the forward (the eager one where nothing is
+        captured)."""
+        call = spans.begin("engine.call")
+        try:
+            if self._graph is not None:
+                x = self._captured_inputs(inputs)
+                out = self._replay(x, call)
+            else:
+                step = spans.begin("engine.copy_in", call)
+                x = self._inputs(inputs)
+                spans.end(step)
+                step = spans.begin("engine.replay", call)
+                out = self._fn(self.params, **x)
+                spans.end(step)
+            if self._donate:
+                self._drop(inputs, x, out)
+        finally:
+            spans.end(call)
         return out
 
     def _drop(self, inputs, x, out) -> None:
@@ -554,7 +583,7 @@ class Engine:
             raise RuntimeError("Engine.benchmark times the CUDA device")
         if self._graph is not None:
             x = {k: v.to(self.device) for k, v in self._captured_inputs(inputs).items()}
-            step = lambda: self._replay(x)  # noqa: E731
+            step = lambda: self._replay(x, 0)  # noqa: E731
         else:
             x = self._inputs(inputs)
             step = lambda: self._fn(self.params, **x)  # noqa: E731

@@ -18,6 +18,7 @@ import struct
 import numpy as np
 
 from ..graph.ir import Graph
+from ..runtime import spans
 
 _DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
            "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
@@ -82,9 +83,11 @@ def save_artifact(path: str, graph: Graph, params: dict) -> None:
                       metadata={"hashes": json.dumps(hashes)})
 
 
+@spans.span("artifact.load")
 def load_artifact(path: str, verify_hashes: bool = True
                   ) -> tuple[Graph, dict[str, np.ndarray]]:
-    """Read an artifact directory written by either package."""
+    """Read an artifact directory written by either package: a set-up span,
+    ``artifact.load`` (``runtime/spans.py``)."""
     with open(os.path.join(path, "graph.json")) as f:
         graph = Graph.from_json(f.read())
     params, meta = read_safetensors(os.path.join(path, "weights.safetensors"))
