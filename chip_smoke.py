@@ -99,10 +99,18 @@ Phases, in order; any failure exits non-zero before the last line:
              shared memory), all with 0 mismatches; qattention
              timed at batch 64 (kernel, plain, bound,
              F.scaled_dot_product_attention on the dequantized bf16 q, k, v
-             as the yardstick). Then both Engines as in phase 5: launch
-             counts 0 / 50 / 0 / 0 / 0 / 0 / 12 / 0 / 0 a forward, every
-             node equal to the plain path and at batch 1 to the CPU Engine,
-             finite (B, 1000) logits, Engine.benchmark.
+             as the yardstick). Every qlayernorm node against
+             qlayernorm_plain on its real input at both batches, and the
+             first on random, +-127 and alternating +-127 rows, 0
+             mismatches; vit_b16's 25 nodes timed at batch 64 (host-launched
+             into the kernels line, beside F.layer_norm on the dequantized
+             f32 rows; kernel and plain version in CUDA graphs; the bound).
+             Then both Engines as in phase 5: launch counts 0 / 50 / 0 / 0 /
+             0 / 0 / 12 / 0 / 0 / 0 / 25 a forward, every node equal to the
+             plain path and at batch 1 to the CPU Engine, finite (B, 1000)
+             logits, Engine.benchmark; vit_b16's built b64 forward profiled
+             (the qlayernorm kernels' device time inside the replay, 25 a
+             forward).
 11. stem Engines  (after phase 7) ResNet-50's Engine(phase_stem=True) and
              Engine(optimize=True) as phases 4-5: every conv node against
              its plain version (the space-to-depth stem a 4x4 stride-1 conv
@@ -289,10 +297,10 @@ the kernels JSON line (launches from the Engine each kernel was timed on:
 the conv and GEMM kernels' from phase 5's unfused Engine, which runs every
 conv (the default's chains take the 3x3s and most GEMMs, phase 7),
 qblockchain's from phase 7, qconv_s2x1's from phase 11's phase_stem
-Engine, qlrn's from phase 8, qattention's from phase 10, nms's from
-phase 13's SSD, each entry's launches_from naming the Engine; times at
-ResNet-50's shapes, qlrn's at GoogLeNet's, qattention's at vit_b16's,
-nms's at SSD's), the card line
+Engine, qlrn's from phase 8, qattention's and qlayernorm's from phase 10,
+nms's from phase 13's SSD, each entry's launches_from naming the Engine;
+times at ResNet-50's shapes, qlrn's at GoogLeNet's, qattention's and
+qlayernorm's at vit_b16's, nms's at SSD's), the card line
 and, last, the contract line; the per-shape timings go to stderr as one
 JSON line.
 """
@@ -333,20 +341,25 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     # of jnp ops in XLA, not in Pallas
     "nms": ("tf2_tpu_torch/kernels/csrc/nms.cu",
             "tf2_tpu/kernels/detection.py:72 (nms_single_class, XLA not Pallas)"),
+    # ViT's int8 layer norm, which the reference runs as jnp ops in XLA
+    "qlayernorm": ("tf2_tpu_torch/kernels/csrc/qlayernorm.cu",
+                   "tf2_tpu/kernels/dispatch.py:433 (qlayernorm, XLA not Pallas)"),
 }
 KERNEL_NAMES = tuple(KERNELS)
 
 
 def _launches(*counts):
+    if len(counts) != len(KERNEL_NAMES):
+        raise ValueError(f"{len(counts)} launch counts for {len(KERNEL_NAMES)} kernels")
     return dict(zip(KERNEL_NAMES, counts))
 
 
 # launches a forward: (pot4 GEMM, int8 GEMM, conv s1, conv s2, chain, qlrn,
-# attention, conv s2x1, stem, nms)
-EXPECTED_LAUNCHES = _launches(33, 1, 13, 6, 0, 0, 0, 0, 1, 0)
-FUSED_LAUNCHES = _launches(6, 1, 0, 6, 4, 0, 0, 0, 1, 0)
-STEM_LAUNCHES = {"phase_stem": _launches(33, 1, 13, 6, 0, 0, 0, 1, 0, 0),
-                 "optimize": _launches(33, 1, 14, 6, 0, 0, 0, 0, 0, 0)}
+# attention, conv s2x1, stem, nms, layer norm)
+EXPECTED_LAUNCHES = _launches(33, 1, 13, 6, 0, 0, 0, 0, 1, 0, 0)
+FUSED_LAUNCHES = _launches(6, 1, 0, 6, 4, 0, 0, 0, 1, 0, 0)
+STEM_LAUNCHES = {"phase_stem": _launches(33, 1, 13, 6, 0, 0, 0, 1, 0, 0, 0),
+                 "optimize": _launches(33, 1, 14, 6, 0, 0, 0, 0, 0, 0, 0)}
 # the default Engine fuses the bottleneck chains (block_fusion, on by
 # default since the card measured it); the others run every block's convs
 RESNET_OPTIONS = {"unfused": {"block_fusion": False}, "default": {},
@@ -354,13 +367,13 @@ RESNET_OPTIONS = {"unfused": {"block_fusion": False}, "default": {},
                   "optimize": {"optimize": True, "block_fusion": False}}
 ZOO_OPTIONS = {"default": {}, "merge_1x1": {"merge_1x1": True}}
 ZOO_LAUNCHES = {  # model -> {option: launches}
-    "googlenet": {"default": _launches(37, 1, 19, 0, 0, 2, 0, 0, 1, 0),
-                  "merge_1x1": _launches(10, 10, 19, 0, 0, 2, 0, 0, 1, 0)},
-    "squeezenet_v1_1": {"default": _launches(16, 1, 8, 0, 0, 0, 0, 0, 1, 0),
-                        "merge_1x1": _launches(12, 1, 8, 0, 0, 0, 0, 0, 1, 0)},
+    "googlenet": {"default": _launches(37, 1, 19, 0, 0, 2, 0, 0, 1, 0, 0),
+                  "merge_1x1": _launches(10, 10, 19, 0, 0, 2, 0, 0, 1, 0, 0)},
+    "squeezenet_v1_1": {"default": _launches(16, 1, 8, 0, 0, 0, 0, 0, 1, 0, 0),
+                        "merge_1x1": _launches(12, 1, 8, 0, 0, 0, 0, 0, 1, 0, 0)},
 }
-VIT_LAUNCHES = _launches(0, 50, 0, 0, 0, 0, 12, 0, 0, 0)
-SSD_LAUNCHES = _launches(0, 0, 8, 5, 0, 0, 0, 0, 1, 1)
+VIT_LAUNCHES = _launches(0, 50, 0, 0, 0, 0, 12, 0, 0, 0, 25)
+SSD_LAUNCHES = _launches(0, 0, 8, 5, 0, 0, 0, 0, 1, 1, 0)
 # f32 operations of one IoU and its compare (csrc/nms.cu: two minima, two
 # maxima, two differences and two clamps, the product, the union's sum and
 # difference, its clamp, the division, the compare)
@@ -534,6 +547,8 @@ def _call(node, params, x_q, plain=False):
         return dispatch.qblockchain(node, params, x_q, plain=plain)
     if node.op == "qlrn":
         return dispatch.qlrn(node, params, x_q, plain=plain)
+    if node.op == "qlayernorm":
+        return dispatch.qlayernorm(node, params, x_q, plain=plain)
     return dispatch.qdense(node, params, x_q, plain=plain)
 
 
@@ -556,6 +571,8 @@ def _bound_ms(node, params, x_q, y) -> tuple[float, float]:
         return _qlrn_bound_ms(node, x_q)
     if node.op == "qattention_core":
         return _qattention_bound_ms(node, x_q)
+    if node.op == "qlayernorm":
+        return _qlayernorm_bound_ms(x_q)
     nbytes, ops = _work(node, params, x_q, y)
     return nbytes / H100_BYTES_PER_S * 1e3, ops / H100_INT8_OPS_PER_S * 1e3
 
@@ -571,6 +588,17 @@ def _qlrn_bound_ms(node, x_q) -> tuple[float, float]:
     window_adds = sum(min(ch + r, c - 1) - max(ch - r, 0) for ch in range(c))
     ops_ms = (11 * m * c / H100_F32_OPS_PER_S + m * window_adds / H100_F64_OPS_PER_S) * 1e3
     return 2 * m * c / H100_BYTES_PER_S * 1e3, ops_ms
+
+
+def _qlayernorm_bound_ms(x_q) -> tuple[float, float]:
+    """qlayernorm reads each int8 input once, gamma and beta (f32) once, and
+    writes each output once. Per element it needs 6 f32 operations
+    (convert, subtract, two multiplies, add, round) and two int32 ones (the
+    sums); per row the two double divisions, the root and the reciprocal
+    are negligible."""
+    d = x_q.shape[-1]
+    m = x_q.numel() // d
+    return (2 * m * d + 8 * d) / H100_BYTES_PER_S * 1e3, 8 * m * d / H100_F32_OPS_PER_S * 1e3
 
 
 def _qattention_bound_ms(node, qkv) -> tuple[float, float]:
@@ -658,7 +686,8 @@ def _library(node, params, x_q):
     H100 80GB HBM3, 700 W), bf16 F.conv2d for convs,
     F.local_response_norm on the dequantized f32 tensor (its NCHW view,
     alpha times the window so that its alpha / n is the node's alpha) for
-    qlrn, F.scaled_dot_product_attention on the dequantized bf16 q, k, v
+    qlrn, F.layer_norm on the dequantized f32 rows for qlayernorm,
+    F.scaled_dot_product_attention on the dequantized bf16 q, k, v
     (N, heads, T, hd) for qattention. No single PyTorch call computes a
     chain of bottleneck blocks: None."""
     import torch.nn.functional as F
@@ -675,6 +704,11 @@ def _library(node, params, x_q):
                    .reshape(n, t, heads, dim // heads).transpose(1, 2).contiguous()
                    for z in torch.split(x_q, dim, dim=-1))
         return lambda: F.scaled_dot_product_attention(q, k, v)
+    if node.op == "qlayernorm":
+        xf = x_q.to(torch.float32) * node.attrs["s_in"]
+        gamma, beta = params[node.params[0]], params[node.params[1]]
+        eps = node.attrs.get("eps", 1e-6)
+        return lambda: F.layer_norm(xf, xf.shape[-1:], gamma, beta, eps)
     if node.op == "qlrn":
         a = node.attrs
         size = 2 * a["radius"] + 1
@@ -1018,6 +1052,8 @@ class KernelStats:
             shape = {"radius": node.attrs["radius"]}
         elif node.op == "qattention_core":
             shape = {"heads": node.attrs["heads"], "dim": node.attrs["dim"]}
+        elif node.op == "qlayernorm":
+            shape = {"width": int(x_q.shape[-1])}
         else:
             shape = {"kshape": node.attrs["kshape"], "strides": node.attrs.get("strides"),
                      "wfmt": node.attrs["wfmt"], "residual": isinstance(x_q, tuple)}
@@ -1497,20 +1533,93 @@ def phase_qattention(engines, plain_envs, stats, timed: bool, ragged: bool = Tru
         f"{stats.k['qattention']['max_abs_err']}")
 
 
+def _alternating_pm127(like):
+    """Rows of alternating +-127 codes (the largest S2 and D * S2 - S1^2 a
+    row can have), of ``like``'s shape and device."""
+    row = torch.tensor([127, -127], dtype=torch.int8, device=like.device)
+    return row.repeat(like.numel() // 2).reshape(like.shape)
+
+
+def phase_qlayernorm(engines, plain_envs, stats, timed: bool) -> dict:
+    """Holds every qlayernorm node against ``qlayernorm_plain`` on its real
+    input at each batch, and the first node on random, +-127 and
+    alternating +-127 rows of that shape (0 mismatches). When ``timed``,
+    every node at batch 64: host-launched into the kernels line (kernel,
+    plain, F.layer_norm, bound), and the kernel and the plain version each
+    captured in a CUDA graph (device times, the best of 3 replays). Returns
+    the sums over the nodes of a b64 forward (ms)."""
+    from tf2_tpu_torch.kernels import autotune
+
+    rng = np.random.default_rng(10)
+    summary = {}
+    for b, eng in engines.items():
+        nodes = [n for n in eng.graph.nodes if n.op == "qlayernorm"]
+        for node in nodes:
+            stats.compare("qlayernorm", node, eng.params, plain_envs[b][node.inputs[0]],
+                          f"b{b} main-path input")
+        x = plain_envs[b][nodes[0].inputs[0]]
+        for what, xr in (("random", _random_like(rng, x)), ("+-127", _random_pm127(rng, x)),
+                         ("alternating +-127", _alternating_pm127(x))):
+            stats.compare("qlayernorm", nodes[0], eng.params, xr, f"b{b} {what}")
+        if b != 64 or not timed:
+            continue
+        sums = {"nodes": len(nodes), "kernel_device_ms": 0.0, "plain_device_ms": 0.0,
+                "bound_ms": 0.0}
+        for node in nodes:
+            x = plain_envs[b][node.inputs[0]]
+            stats.time("qlayernorm", node, eng.params, x, None, 1)
+            sums["kernel_device_ms"] += min(autotune.graph_ms(
+                lambda n=node, v=x: _call(n, eng.params, v), 20, reps=3))
+            sums["plain_device_ms"] += min(autotune.graph_ms(
+                lambda n=node, v=x: _call(n, eng.params, v, plain=True), 3, reps=3))
+            sums["bound_ms"] += max(_qlayernorm_bound_ms(x))
+        summary["b64"] = sums
+        log(f"qlayernorm b64, {len(nodes)} nodes: kernel {sums['kernel_device_ms']:.6f} ms "
+            f"(device), plain {sums['plain_device_ms']:.6f} ms (device), bound "
+            f"{sums['bound_ms']:.6f} ms")
+    stats.raise_on_mismatch("the layer norm kernel disagrees with its plain version")
+    log(f"qlayernorm: {stats.k['qlayernorm']['checks']} checks, max |err| "
+        f"{stats.k['qlayernorm']['max_abs_err']}")
+    return summary
+
+
+def _qlayernorm_in_replay(engine, image) -> dict:
+    """The qlayernorm kernels inside the built forward's replays: a
+    torch.profiler trace of 5 replays (``runtime/profile.profile``); their
+    device ms and launches a forward, which must be 25."""
+    from tf2_tpu_torch.runtime import profile
+
+    with tempfile.TemporaryDirectory() as d:
+        report = profile.profile(engine, image, f"{d}/trace.json")
+    fam = report["by_family"].get("qlayernorm", {"ms_per_forward": 0.0,
+                                                  "launches_per_forward": 0})
+    if report["by_family"] and round(fam["launches_per_forward"]) != 25:
+        raise RuntimeError(f"qlayernorm: {fam['launches_per_forward']} launches a replayed "
+                           f"forward, expected 25: {report['by_family']}")
+    out = {"ms_per_forward": fam["ms_per_forward"],
+           "launches_per_forward": fam["launches_per_forward"],
+           "forward_busy_ms": report["device_busy_ms_per_forward"]}
+    log(f"qlayernorm in the b64 replay: {out}")
+    return out
+
+
 def phase_vit(name, images, stats):
     """Phase 10 for one model: the artifact and Engines; every qdense node
     (with and without a residual) against its plain version, timed per
     shape outside the kernels line when the model is vit_b16; every
-    qattention_core node (timed into the kernels line for vit_b16); both
-    batches through phase_main. Returns (launches per b64 forward,
-    summary)."""
+    qattention_core and qlayernorm node (timed into the kernels line for
+    vit_b16); both batches through phase_main; vit_b16's Engines built and
+    the b64 replay profiled. Returns (launches per b64 forward, summary)."""
     engines, cpu_engine = phase_vit_artifact(name)
     timed = name == "vit_b16"
     envs = phase_kernels(engines, images, stats, timed=timed, total=False)
     phase_qattention(engines, envs, stats, timed)
+    layernorm = phase_qlayernorm(engines, envs, stats, timed)
     launches, summary, _ = phase_main(name, engines, cpu_engine, images, envs, VIT_LAUNCHES)
+    summary["qlayernorm"] = layernorm
     if name == "vit_b16":
         summary["captured"] = phase_captured(name, engines, summary, seed=19)
+        summary["qlayernorm"]["in_replay_b64"] = _qlayernorm_in_replay(engines[64], images[64])
     log(f"{name}: kernels " + ", ".join(f"{k} {v['checks']} checks" for k, v in stats.k.items()))
     return launches, summary
 
@@ -3097,6 +3206,8 @@ def main() -> int:
         vit_launches, zoo[name] = phase_vit(name, images, stats)
         if name == "vit_b16":
             launches["qattention"], launches_from["qattention"] = (vit_launches["qattention"],
+                                                                   "vit_b16 b64")
+            launches["qlayernorm"], launches_from["qlayernorm"] = (vit_launches["qlayernorm"],
                                                                    "vit_b16 b64")
     check_gemm_variants(stats)
     check_pot4_variants(stats)

@@ -33,9 +33,9 @@ def _qattention_core(node, params, qkv, plain=False):
     return dispatch.qattention_core(node, params, qkv, plain=plain)
 
 
-@register_op("qlayernorm")
-def _qlayernorm(node, params, x):
-    return dispatch.qlayernorm(node, params, x)
+@register_op("qlayernorm", kernel=True)
+def _qlayernorm(node, params, x, plain=False):
+    return dispatch.qlayernorm(node, params, x, plain=plain)
 
 
 @register_op("qgelu")

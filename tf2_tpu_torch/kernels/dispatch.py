@@ -1,9 +1,10 @@
 """Executors of the fused quantized ops on torch tensors: every conv and
-dense layer and every attention core goes through one of the CUDA kernels
-(or, with ``plain=True`` or on the CPU, through that kernel's plain
-version). The transformer glue (``qlayernorm``, ``qgelu``, ``qbias_add``)
-is plain PyTorch on either device, as the reference computes it outside
-any kernel, in steps that give the same bits on the card and the CPU.
+dense layer, every attention core and every int8 layer norm goes through
+one of the CUDA kernels (or, with ``plain=True`` or on the CPU, through
+that kernel's plain version). The rest of the transformer glue (``qgelu``,
+``qbias_add``) is plain PyTorch on either device, as the reference computes
+it outside any kernel, in steps that give the same bits on the card and
+the CPU.
 
 Each conv and dense node has a route, chosen once at load by the Engine
 (``route_conv``, ``route_dense``; the counterparts of the reference's,
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build, qattention, qblocks, qconv, qlrn as qlrn_kernel, qstem, shift_matmul
+from . import qlayernorm as qlayernorm_kernel
 
 ROUTES = ("kernel", "kernel_int8", "library")
 _USE_KERNELS: bool | None = None   # None: the table; True / False: forced
@@ -231,37 +233,11 @@ def _requant(y: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
 
 
-def qlayernorm(node, params, x_q: torch.Tensor) -> torch.Tensor:
-    """LayerNorm on the int8 codes, int8 out. Normalization is scale
-    invariant, so the codes normalize directly with eps / s_in^2; the
-    affine and the output quantize fold into gamma / s_out and beta / s_out:
-
-        mu  = f32(S1 / D),  var = f32((D * S2 - S1^2) / D^2)
-        y   = ((x - mu) * (1 / sqrt(var + f32(eps / s_in^2)))) * (gamma / s_out)
-              + beta / s_out
-
-    S1 and S2, the sums of the codes and of their squares, are exact
-    integers in any order, and every other step is one IEEE operation (no
-    fused multiply-add), so the card and the CPU give the same bits. The
-    variance is the exact one where the reference (``tf2_tpu/kernels/
-    dispatch.py:433-451``) takes f32 means and ``rsqrt``: they agree to
-    within one quantum at rounding boundaries."""
-    gamma = params[node.params[0]].to(torch.float32)
-    beta = params[node.params[1]].to(torch.float32)
-    s_in, s_out = node.attrs["s_in"], node.attrs["s_out"]
-    d = x_q.shape[-1]
-    dev = x_q.device
-    xi = x_q.to(torch.int64)
-    s1 = xi.sum(dim=-1, keepdim=True)
-    s2 = (xi * xi).sum(dim=-1, keepdim=True)
-    mu = (s1.to(torch.float64) / build.scalar(d, dev, torch.float64)).to(torch.float32)
-    var = ((d * s2 - s1 * s1).to(torch.float64)
-           / build.scalar(d * d, dev, torch.float64)).to(torch.float32)
-    eps = build.f32(node.attrs.get("eps", 1e-6) / (s_in * s_in))
-    inv = build.scalar(1.0, dev) / build.sqrt_rn(var + eps)
-    so = build.scalar(build.f32(s_out), dev)
-    y = ((x_q.to(torch.float32) - mu) * inv) * (gamma / so) + beta / so
-    return _requant(y)
+def qlayernorm(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """LayerNorm on the int8 codes, int8 out (kernels/qlayernorm.py)."""
+    return qlayernorm_kernel.fused_qlayernorm(
+        x_q, params[node.params[0]], params[node.params[1]], eps=node.attrs.get("eps", 1e-6),
+        s_in=node.attrs["s_in"], s_out=node.attrs["s_out"], plain=plain)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

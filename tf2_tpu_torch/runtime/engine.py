@@ -1,8 +1,8 @@
 """Runtime Engine: loads a quantized graph and its params onto a device,
 applies the load-time passes and runs the graph layer by layer, each conv
-and dense layer, each LRN and each attention core in one of the CUDA
-kernels (or on the route the routing table chose for it at load,
-``kernels/autotune.py``), or, where the coverage plan made at load finds
+and dense layer, each LRN, each attention core and each int8 layer norm in
+one of the CUDA kernels (or on the route the routing table chose for it at
+load, ``kernels/autotune.py``), or, where the coverage plan made at load finds
 that no kernel takes a node, in its plain version on the card. SSD's box
 decode and candidate sort are plain PyTorch on the device and its greedy
 NMS mask a kernel (``kernels/detection.py``), where the reference's are
@@ -23,7 +23,7 @@ from ..graph.optimize import (fuse_bottleneck_chains, fuse_lrn_quantize,
                               fuse_stem_quantize, hoist_input_quantize,
                               merge_sibling_1x1, pack_phase_stem, space_to_depth_stem)
 from ..graph.shapes import activation_shapes
-from ..kernels import dispatch, qattention, qblocks, qconv, qlrn, qstem
+from ..kernels import dispatch, qattention, qblocks, qconv, qlayernorm, qlrn, qstem
 from ..parallel.mesh import (MeshConfig, all_gather_last, batch_bounds, channel_bounds,
                              gather_batch, input_shardings, local_node, tp_shardable)
 from ..transform import potq
@@ -351,11 +351,12 @@ class Engine:
         ``activation_shapes`` gives: ``qconv.covers`` for a conv (and, for
         pot4 codes, an even K), the pot4 GEMM for a dense (an even K and no
         residual: ``predecode=False`` leaves such nodes packed),
-        ``qattention.covers`` for an attention core, ``qlrn.covers`` and
-        ``qblocks.covers`` with the card's ``limits``. Int8 dense layers
-        and the ``wpack2`` stem always have a kernel, and the int8 glue
-        needs none (the reference's XLA fallback,
-        ``tf2_tpu/kernels/dispatch.py``, made at load). ``shapes``:
+        ``qattention.covers`` for an attention core, ``qlayernorm.covers``
+        for a layer norm's width, ``qlrn.covers`` and ``qblocks.covers``
+        with the card's ``limits``. Int8 dense layers and the ``wpack2``
+        stem always have a kernel, and the rest of the int8 glue needs none
+        (the reference's XLA fallback, ``tf2_tpu/kernels/dispatch.py``,
+        made at load). ``shapes``:
         the values' shapes where the graph alone does not give them (a tp
         rank's graph, whose sliced nodes' outputs are gathered)."""
         shapes = shapes or activation_shapes(graph, params)
@@ -372,6 +373,8 @@ class Engine:
                                           n.attrs["dim"] // n.attrs["heads"])
             elif n.op == "qlrn":
                 takes = qlrn.covers(shapes[n.inputs[0]][-1], limits.qlrn_channels)
+            elif n.op == "qlayernorm":
+                takes = qlayernorm.covers(shapes[n.inputs[0]][-1])
             elif n.op == "qblockchain":
                 takes = qblocks.covers(shapes[n.inputs[0]], dispatch.chain_blocks(n, params),
                                        limits.smem_per_block)
