@@ -285,11 +285,24 @@ Phases, in order; any failure exits non-zero before the last line:
              b64 and b1: attributed share >= 0.99, device ms / benchmark ms
              within 0.8-1.2, the ten slowest nodes printed. Every number
              printed with the card; the phase's seconds by step.
-Every zoo Engine on the card (phases 3-14) must have empty plain_nodes:
+23. convnext (run after phase 15) full-width ConvNeXt-T W4-PoT (224x224,
+             1000 classes): Engines at batch 64 and 1 with no plain node
+             (engine.plain_nodes 0, engine.dwconv_nodes 18 each); every
+             conv and dense node as in phase 4, every depthwise conv on the
+             qdwconv kernel against its plain version; both batches as
+             phase 7 (launch counts 39 / 2 / 0 / 0 / 0 / 0 / 0 / 0 / 0 /
+             0 / 23 / 18); each depthwise shape at b64 timed in a CUDA
+             graph and host-launched beside the plain version, a bf16
+             grouped F.conv2d and its bound (the kernels line's qdwconv
+             row); both Engines built as phase 16 and the b64 replay
+             profiled (18 qdwconv launches a forward); the share of +-127
+             codes in stage 4's residual stream.
+Every zoo Engine on the card (phases 3-14, 23) must have empty plain_nodes:
 the coverage plan sends none of the zoo's nodes to a plain version.
 Launch counts are in the order (qmatmul_pot4, qmatmul_int8, qconv_s1,
-qconv_s2, qblockchain, qlrn, qattention, qconv_s2x1, qstem, nms); nms is 0
-on every path but SSD's and left off the lists above. Prints the
+qconv_s2, qblockchain, qlrn, qattention, qconv_s2x1, qstem, nms,
+qlayernorm, qdwconv); nms is 0 on every path but SSD's, qdwconv on every
+path but ConvNeXt's, and the lists above leave them off. Prints the
 headline bench's line, the summary line (every path's numbers, the stem
 routes, the captured forwards, the routes, serving, parallelism, the tools,
 the wall time),
@@ -344,6 +357,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     # ViT's int8 layer norm, which the reference runs as jnp ops in XLA
     "qlayernorm": ("tf2_tpu_torch/kernels/csrc/qlayernorm.cu",
                    "tf2_tpu/kernels/dispatch.py:433 (qlayernorm, XLA not Pallas)"),
+    # ConvNeXt's depthwise convs, which the reference sends to XLA as
+    # grouped convs (the reference has no ConvNeXt)
+    "qdwconv": ("tf2_tpu_torch/kernels/csrc/qdwconv.cu",
+                "tf2_tpu/kernels/dispatch.py:191 (grouped conv, XLA not Pallas)"),
 }
 KERNEL_NAMES = tuple(KERNELS)
 
@@ -355,11 +372,11 @@ def _launches(*counts):
 
 
 # launches a forward: (pot4 GEMM, int8 GEMM, conv s1, conv s2, chain, qlrn,
-# attention, conv s2x1, stem, nms, layer norm)
-EXPECTED_LAUNCHES = _launches(33, 1, 13, 6, 0, 0, 0, 0, 1, 0, 0)
-FUSED_LAUNCHES = _launches(6, 1, 0, 6, 4, 0, 0, 0, 1, 0, 0)
-STEM_LAUNCHES = {"phase_stem": _launches(33, 1, 13, 6, 0, 0, 0, 1, 0, 0, 0),
-                 "optimize": _launches(33, 1, 14, 6, 0, 0, 0, 0, 0, 0, 0)}
+# attention, conv s2x1, stem, nms, layer norm, depthwise conv)
+EXPECTED_LAUNCHES = _launches(33, 1, 13, 6, 0, 0, 0, 0, 1, 0, 0, 0)
+FUSED_LAUNCHES = _launches(6, 1, 0, 6, 4, 0, 0, 0, 1, 0, 0, 0)
+STEM_LAUNCHES = {"phase_stem": _launches(33, 1, 13, 6, 0, 0, 0, 1, 0, 0, 0, 0),
+                 "optimize": _launches(33, 1, 14, 6, 0, 0, 0, 0, 0, 0, 0, 0)}
 # the default Engine fuses the bottleneck chains (block_fusion, on by
 # default since the card measured it); the others run every block's convs
 RESNET_OPTIONS = {"unfused": {"block_fusion": False}, "default": {},
@@ -367,13 +384,19 @@ RESNET_OPTIONS = {"unfused": {"block_fusion": False}, "default": {},
                   "optimize": {"optimize": True, "block_fusion": False}}
 ZOO_OPTIONS = {"default": {}, "merge_1x1": {"merge_1x1": True}}
 ZOO_LAUNCHES = {  # model -> {option: launches}
-    "googlenet": {"default": _launches(37, 1, 19, 0, 0, 2, 0, 0, 1, 0, 0),
-                  "merge_1x1": _launches(10, 10, 19, 0, 0, 2, 0, 0, 1, 0, 0)},
-    "squeezenet_v1_1": {"default": _launches(16, 1, 8, 0, 0, 0, 0, 0, 1, 0, 0),
-                        "merge_1x1": _launches(12, 1, 8, 0, 0, 0, 0, 0, 1, 0, 0)},
+    "googlenet": {"default": _launches(37, 1, 19, 0, 0, 2, 0, 0, 1, 0, 0, 0),
+                  "merge_1x1": _launches(10, 10, 19, 0, 0, 2, 0, 0, 1, 0, 0, 0)},
+    "squeezenet_v1_1": {"default": _launches(16, 1, 8, 0, 0, 0, 0, 0, 1, 0, 0, 0),
+                        "merge_1x1": _launches(12, 1, 8, 0, 0, 0, 0, 0, 1, 0, 0, 0)},
 }
-VIT_LAUNCHES = _launches(0, 50, 0, 0, 0, 0, 12, 0, 0, 0, 25)
-SSD_LAUNCHES = _launches(0, 0, 8, 5, 0, 0, 0, 0, 1, 1, 0)
+VIT_LAUNCHES = _launches(0, 50, 0, 0, 0, 0, 12, 0, 0, 0, 25, 0)
+SSD_LAUNCHES = _launches(0, 0, 8, 5, 0, 0, 0, 0, 1, 1, 0, 0)
+# ConvNeXt-T: 36 pointwise convs and 3 patchified downsamples on the pot4
+# GEMM, the patchified stem and the classifier on the int8 one, 23 layer
+# norms, 18 depthwise convs
+CONVNEXT_LAUNCHES = _launches(39, 2, 0, 0, 0, 0, 0, 0, 0, 0, 23, 18)
+# ConvNeXt-T's blocks a stage (the depthwise convs of each shape a forward)
+CONVNEXT_DEPTHS = (3, 3, 9, 3)
 # f32 operations of one IoU and its compare (csrc/nms.cu: two minima, two
 # maxima, two differences and two clamps, the product, the union's sum and
 # difference, its clamp, the division, the compare)
@@ -1676,6 +1699,125 @@ def phase_vit384(stats):
     summary["qattention_b64_row"] = stats.rows[-1]
     log(f"vit_b16_cls 384: qattention b64 {stats.rows[-1]['ms']:.6f} ms a launch")
     return summary
+
+
+def _dwconv_work(x_q, k: int) -> tuple[float, float]:
+    """(bytes over the memory rate, operations over the int8 peak) in ms of
+    a k x k depthwise conv of x_q: its input read once, its weights, es and
+    eb read once, its output written once; 2 operations a multiply-add on
+    the taps inside the image."""
+    from tf2_tpu_torch.bench.conv_bound import taps
+
+    b, h, w, c = x_q.shape
+    p = (k - 1) // 2
+    _, ty = taps(h, k, 1, p, h)
+    _, tx = taps(w, k, 1, p, w)
+    nbytes = 2 * b * h * w * c + k * k * c + 8 * c
+    return nbytes / H100_BYTES_PER_S * 1e3, 2.0 * b * ty * tx * c / H100_INT8_OPS_PER_S * 1e3
+
+
+def _dwconv_in_replay(engine, image) -> dict:
+    """The qdwconv kernels inside the built forward's replays (a
+    torch.profiler trace of 5, ``runtime/profile.profile``): their device
+    ms and launches a forward, which must be 18."""
+    from tf2_tpu_torch.runtime import profile
+
+    with tempfile.TemporaryDirectory() as d:
+        report = profile.profile(engine, image, f"{d}/trace.json")
+    fam = report["by_family"].get("qdwconv", {"ms_per_forward": 0.0, "launches_per_forward": 0})
+    if report["by_family"] and round(fam["launches_per_forward"]) != 18:
+        raise RuntimeError(f"qdwconv: {fam['launches_per_forward']} launches a replayed "
+                           f"forward, expected 18: {report['by_family']}")
+    out = {"ms_per_forward": fam["ms_per_forward"],
+           "launches_per_forward": fam["launches_per_forward"],
+           "forward_busy_ms": report["device_busy_ms_per_forward"],
+           "by_family": report["by_family"]}
+    log(f"qdwconv in the b64 replay: {fam}; forward busy "
+        f"{report['device_busy_ms_per_forward']:.4f} ms")
+    return out
+
+
+def phase_convnext(stats, smi: str) -> tuple[dict, dict]:
+    """Phase 23: full-width ConvNeXt-T W4-PoT (224x224, 1000 classes) from
+    its synthetic artifact (saved and loaded back): Engines at batch 64 and
+    1 that leave no node plain (``engine.plain_nodes`` 0, 18 nodes on the
+    depthwise kernel); every conv and dense node against its plain version
+    as in phase 4 (each depthwise conv on its real input, random inputs
+    with relu flipped and +-127); both batches through phase_main
+    (launches, every node equal to the plain path, at b1 to the CPU
+    Engine); each depthwise shape at b64 timed in a CUDA graph and
+    host-launched beside its plain version, a bf16 grouped F.conv2d and its
+    bound; both Engines built (three replays equal to eager) and the b64
+    replay profiled; the share of +-127 codes in the last stage's residual
+    stream. Returns (launches per b64 forward, summary)."""
+    import torch.nn.functional as F
+
+    from tf2_tpu_torch.kernels import autotune
+    from tf2_tpu_torch.runtime import spans
+
+    t0 = time.time()
+    before = spans.counters()
+    engines, cpu_engines, art = phase_artifact("convnext_t", {"default": {}})
+    engines, cpu_engine = engines["default"], cpu_engines["default"]
+    after = spans.counters()
+    plain = after["engine.plain_nodes"] - before["engine.plain_nodes"]
+    dwconv = after["engine.dwconv_nodes"] - before["engine.dwconv_nodes"]
+    if plain or dwconv != 18 * len(engines):
+        raise RuntimeError(f"convnext_t: engine.plain_nodes +{plain}, engine.dwconv_nodes "
+                           f"+{dwconv} for {len(engines)} Engines")
+    rng = np.random.default_rng(23)
+    images = {b: torch.as_tensor(rng.standard_normal((b, 224, 224, 3), dtype=np.float32)).cuda()
+              for b in engines}
+    envs = phase_kernels(engines, images, stats, timed=False)
+    launches, summary, _ = phase_main("convnext_t", engines, cpu_engine, images, envs,
+                                      CONVNEXT_LAUNCHES, graph=art[0])
+    summary["counters"] = {"engine.plain_nodes": plain, "engine.dwconv_nodes": dwconv}
+    eng = engines[64]
+    dws = [n for n in eng.graph.nodes if n.op == "qconv2d" and n.attrs.get("groups", 1) > 1]
+    rows, sums = [], {"kernel_device_ms": 0.0, "kernel_ms": 0.0, "plain_device_ms": 0.0,
+                      "library_ms": 0.0, "bound_ms": 0.0}
+    for stage, depth in enumerate(CONVNEXT_DEPTHS):
+        node = next(n for n in dws if n.name.startswith(f"s{stage + 1}b0_"))
+        x = envs[64][node.inputs[0]]
+        k = node.attrs["kshape"][0]
+        graph_ms = min(autotune.graph_ms(lambda n=node, v=x: _call(n, eng.params, v), 20, reps=3))
+        plain_ms = min(autotune.graph_ms(
+            lambda n=node, v=x: _call(n, eng.params, v, plain=True), 3, reps=3))
+        ms = cuda_ms(lambda n=node, v=x: _call(n, eng.params, v), 20)
+        w = eng.params[node.params[0]]
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wb = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        c = x.shape[-1]
+        library_ms = cuda_ms(lambda: F.conv2d(xb, wb, padding=k // 2, groups=c), 20)
+        bytes_ms, ops_ms = _dwconv_work(x, k)
+        stats.add("qdwconv", {"node": node.name, "x": list(x.shape),
+                              "kshape": node.attrs["kshape"], "graph_ms": graph_ms},
+                  ms, plain_ms, library_ms, bytes_ms, ops_ms, depth)
+        bound = max(bytes_ms, ops_ms)
+        row = {"node": node.name, "x": list(x.shape), "nodes": depth, "device_ms": graph_ms,
+               "host_launched_ms": ms, "plain_device_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound, "roofline_share": bound / graph_ms}
+        rows.append(row)
+        for key, v in (("kernel_device_ms", graph_ms), ("kernel_ms", ms),
+                       ("plain_device_ms", plain_ms), ("library_ms", library_ms),
+                       ("bound_ms", row["bound_ms"])):
+            sums[key] += v * depth
+        log(f"qdwconv {node.name} {list(x.shape)} x{depth}: {graph_ms:.5f} ms device "
+            f"({ms:.5f} host-launched), plain {plain_ms:.4f}, bf16 F.conv2d {library_ms:.5f}, "
+            f"bound {row['bound_ms']:.5f} ({row['roofline_share']:.1%})")
+    log(f"qdwconv b64, 18 nodes: {sums}")
+    summary["qdwconv"] = {"b64_shapes": rows, "b64_forward": sums}
+    # +-127 codes in the last stage's residual stream (the blocks' adds)
+    adds = [envs[64][n.name] for n in eng.graph.nodes if n.op == "qadd" and n.name.startswith("s4")]
+    summary["stage4_stream_pm127_share"] = float(
+        sum(int((a.abs() == 127).sum()) for a in adds) / sum(a.numel() for a in adds))
+    summary["captured"] = phase_captured("convnext_t", engines, summary, seed=24)
+    summary["qdwconv"]["in_replay_b64"] = _dwconv_in_replay(eng, images[64])
+    summary["seconds"] = time.time() - t0
+    summary["card"] = smi
+    log(f"convnext_t: phase 23 took {summary['seconds']:.1f} s; stage-4 stream +-127 share "
+        f"{summary['stage4_stream_pm127_share']:.4f}")
+    return launches, summary
 
 
 def phase_coverage():
@@ -3216,6 +3358,8 @@ def main() -> int:
     launches["nms"], launches_from["nms"] = ssd_launches["nms"], "ssd random b64"
     zoo["vit_b16_cls_384"] = phase_vit384(stats)
     zoo["coverage"] = phase_coverage()
+    dw_launches, zoo["convnext_t"] = phase_convnext(stats, smi)
+    launches["qdwconv"], launches_from["qdwconv"] = dw_launches["qdwconv"], "convnext_t b64"
     zoo["transform"] = phase_transform(stats)
     if not all(launches.values()):
         raise RuntimeError(f"kernels launched no time on their paths: {launches}")

@@ -140,7 +140,7 @@ def test_engine_every_node_equals_plain(cuda):
                                        "qconv_s1": 1, "qconv_s2": 6, "qblockchain": 0,
                                        "qlrn": 0, "qattention": 0,
                                        "qconv_s2x1": 0, "qstem": 1, "nms": 0,
-                                       "qlayernorm": 0}
+                                       "qlayernorm": 0, "qdwconv": 0}
     assert eng.stem_nodes == {"conv1_relu"}
     assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
@@ -231,7 +231,7 @@ def test_block_fused_engine_every_node_equals_plain(cuda):
                                        "qconv_s1": 0, "qconv_s2": 6, "qblockchain": 4,
                                        "qlrn": 0, "qattention": 0,
                                        "qconv_s2x1": 0, "qstem": 1, "nms": 0,
-                                       "qlayernorm": 0}
+                                       "qlayernorm": 0, "qdwconv": 0}
     assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
@@ -589,7 +589,7 @@ def test_vit_engine_every_node_equals_plain(cuda, name, weight_bits):
                                        "qconv_s1": 0, "qconv_s2": 0, "qblockchain": 0,
                                        "qlrn": 0, "qattention": 2,
                                        "qconv_s2x1": 0, "qstem": 0, "nms": 0,
-                                       "qlayernorm": 5}
+                                       "qlayernorm": 5, "qdwconv": 0}
     assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
@@ -604,10 +604,12 @@ def test_vit_engine_every_node_equals_plain(cuda, name, weight_bits):
 @pytest.mark.parametrize("name,image,launches", [
     ("googlenet", 64, {"qmatmul_pot4": 37, "qmatmul_int8": 1, "qconv_s1": 19,
                        "qconv_s2": 0, "qblockchain": 0, "qlrn": 2, "qattention": 0,
-                       "qconv_s2x1": 0, "qstem": 1, "nms": 0, "qlayernorm": 0}),
+                       "qconv_s2x1": 0, "qstem": 1, "nms": 0, "qlayernorm": 0,
+                       "qdwconv": 0}),
     ("squeezenet_v1_1", 96, {"qmatmul_pot4": 16, "qmatmul_int8": 1, "qconv_s1": 8,
                              "qconv_s2": 0, "qblockchain": 0, "qlrn": 0, "qattention": 0,
-                             "qconv_s2x1": 0, "qstem": 1, "nms": 0, "qlayernorm": 0}),
+                             "qconv_s2x1": 0, "qstem": 1, "nms": 0, "qlayernorm": 0,
+                       "qdwconv": 0}),
 ])
 def test_zoo_engines_every_node_equals_plain(cuda, name, image, launches):
     """GoogLeNet and SqueezeNet at batch 2 on the card, merge_1x1 off and
@@ -782,7 +784,7 @@ def test_stem_engines_every_node_equals_plain(cuda):
     # the unfused Engine's counts, its stem (one qstem launch) taken off
     base = {"qmatmul_pot4": 9, "qmatmul_int8": 1, "qconv_s1": 1, "qconv_s2": 6,
             "qblockchain": 0, "qlrn": 0, "qattention": 0, "qconv_s2x1": 0, "qstem": 0,
-            "nms": 0, "qlayernorm": 0}
+            "nms": 0, "qlayernorm": 0, "qdwconv": 0}
     for flag, moved in (("phase_stem", {"qconv_s2x1": 1}), ("optimize", {"qconv_s1": 2})):
         eng = Engine(art.graph, art.params, block_fusion=False, **{flag: True})
         kernels.reset_launch_counts()

@@ -112,9 +112,9 @@ def test_setup_spans_nest_and_survive_a_wrap():
     assert len({s.id for s in rec.setup} | {s.id for s in rec.calls}) == 3 + 8
     assert rec.overwritten == 92
     r.count("kernels.compiled", 3)
-    assert r.counters() == {"kernels.compiled": 3}
+    assert r.counters() == {**dict.fromkeys(spans.COUNTERS, 0), "kernels.compiled": 3}
     r.reset()
-    assert r.records() == ([], [], 0) and r.counters() == {"kernels.compiled": 0}
+    assert r.records() == ([], [], 0) and r.counters() == dict.fromkeys(spans.COUNTERS, 0)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -6,8 +6,9 @@ tests/test_torch_cuda.py.
 - ``conv_graph``: a small CNN whose middle convs are a depthwise 3x3
   (``groups = cin``), a ``groups=2`` 3x3, a 3x3 at stride 3 and a 3x3 at
   stride (1, 2): the shapes the reference sends to XLA
-  (``tf2_tpu/kernels/dispatch.py:191-251``) and the conv kernels do not
-  take. Its stem, a pointwise conv and the classifier do have kernels.
+  (``tf2_tpu/kernels/dispatch.py:191-251``). The depthwise conv runs on the
+  ``qdwconv`` kernel; the conv kernels take none of the other three. Its
+  stem, a pointwise conv and the classifier do have kernels.
 - ``tiny_vit_hd24``: a ViT whose heads are 24 wide (dim 48, 2 heads), which
   the attention kernel does not take (hd a multiple of 16).
 - ``stem_graph``: a CNN whose image stem is a k x k stride-2 conv that the
@@ -22,8 +23,8 @@ tests/test_torch_cuda.py.
 from __future__ import annotations
 
 # the conv_graph nodes, after quantization (each conv takes its relu's
-# name), that no conv kernel takes
-CONV_PLAIN = frozenset({"dw3x3", "g2_3x3", "s3_3x3", "s12_3x3"})
+# name), that no conv kernel takes (the depthwise dw3x3 runs on qdwconv)
+CONV_PLAIN = frozenset({"g2_3x3", "s3_3x3", "s12_3x3"})
 
 
 def conv_graph(builder, batch: int = 2, image: int = 32, classes: int = 10):

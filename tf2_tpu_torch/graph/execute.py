@@ -252,6 +252,11 @@ def _mul(node, params, a, b):
     return a * b
 
 
+@register_op("layer_scale")
+def _layer_scale(node: Node, params, x):
+    return x * params[node.params[0]].to(x.dtype)
+
+
 @register_op("reshape")
 def _reshape(node: Node, params, x):
     return x.reshape(node.attrs["shape"])

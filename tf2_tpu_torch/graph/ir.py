@@ -30,6 +30,7 @@ OPS = {
     "gelu": "gaussian error linear unit",
     "add": "elementwise add (residual)",
     "mul": "elementwise multiply",
+    "layer_scale": "per-channel multiply by a learned vector (ConvNeXt's gamma)",
     # pooling / shape
     "maxpool": "window max pool",
     "avgpool": "window average pool",
@@ -280,6 +281,13 @@ class GraphBuilder:
         nm = self._fresh("layer_norm", name)
         params = [self._param(f"{nm}.scale", (c,)), self._param(f"{nm}.offset", (c,))]
         return self.raw("layer_norm", [x], params, name=nm, eps=eps)
+
+    def layer_scale(self, x: str, c: int, name: str | None = None) -> str:
+        """x * gamma over the last axis (ConvNeXt's layer scale); the
+        Transform Kit folds it into the conv or dense layer before it
+        (``transform/fold.py``)."""
+        nm = self._fresh("layer_scale", name)
+        return self.raw("layer_scale", [x], [self._param(f"{nm}.gamma", (c,))], name=nm)
 
     def attention(self, x: str, dim: int, heads: int, name: str | None = None) -> str:
         nm = self._fresh("attention", name)

@@ -1,10 +1,10 @@
 """Executors of the fused quantized ops on torch tensors: every conv and
-dense layer, every attention core and every int8 layer norm goes through
-one of the CUDA kernels (or, with ``plain=True`` or on the CPU, through
-that kernel's plain version). The rest of the transformer glue (``qgelu``,
-``qbias_add``) is plain PyTorch on either device, as the reference computes
-it outside any kernel, in steps that give the same bits on the card and
-the CPU.
+dense layer (the k x k depthwise convs on ``qdwconv``), every attention
+core and every int8 layer norm goes through one of the CUDA kernels (or,
+with ``plain=True`` or on the CPU, through that kernel's plain version).
+The rest of the transformer glue (``qgelu``, ``qbias_add``) is plain
+PyTorch on either device, as the reference computes it outside any kernel,
+in steps that give the same bits on the card and the CPU.
 
 Each conv and dense node has a route, chosen once at load by the Engine
 (``route_conv``, ``route_dense``; the counterparts of the reference's,
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import build, qattention, qblocks, qconv, qlrn as qlrn_kernel, qstem, shift_matmul
+from . import build, qattention, qblocks, qconv, qdwconv, qlrn as qlrn_kernel, qstem, shift_matmul
 from . import qlayernorm as qlayernorm_kernel
 
 ROUTES = ("kernel", "kernel_int8", "library")
@@ -160,11 +160,27 @@ def _qconv_wpack2(node, params, x: torch.Tensor, plain: bool) -> torch.Tensor:
     return qconv.qconv_s2x1(xp, w_q, es, eb, **kw)
 
 
+def depthwise(node, xshape) -> bool:
+    """Is the ``qconv2d`` node, on input shape ``xshape``, a depthwise conv
+    that the ``qdwconv`` kernel takes (``qdwconv.covers``) once its weights
+    are int8?"""
+    a = node.attrs
+    padding = a.get("padding", "SAME")
+    return (node.op == "qconv2d" and a.get("groups", 1) > 1
+            and qdwconv.covers(a["kshape"], a.get("strides", [1, 1]), a["groups"], xshape[-1],
+                               padding if isinstance(padding, str)
+                               else [tuple(p) for p in padding], xshape[2]))
+
+
 def qconv2d(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
     if node.attrs.get("wfmt") == "wpack2":
         return _qconv_wpack2(node, params, x_q, plain)
     if node.attrs.get("wfmt") not in ("pot4", "int8"):
         raise NotImplementedError(f"weight format {node.attrs.get('wfmt')!r} is not ported")
+    if node.attrs["wfmt"] == "int8" and depthwise(node, x_q.shape):
+        return qdwconv.fused_qdwconv(x_q, params[node.params[0]], params[node.params[1]],
+                                     params[node.params[2]], relu=node.attrs["relu"],
+                                     plain=plain)
     padding = node.attrs.get("padding", "SAME")
     if not isinstance(padding, str):
         padding = [tuple(p) for p in padding]

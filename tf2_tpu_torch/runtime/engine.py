@@ -351,6 +351,8 @@ class Engine:
         ``activation_shapes`` gives: ``qconv.covers`` for a conv (and, for
         pot4 codes, an even K), the pot4 GEMM for a dense (an even K and no
         residual: ``predecode=False`` leaves such nodes packed),
+        ``qdwconv.covers`` for a depthwise conv (with int8 weights: a pot4
+        one, which ``predecode=False`` leaves packed, runs plain),
         ``qattention.covers`` for an attention core, ``qlayernorm.covers``
         for a layer norm's width, ``qlrn.covers`` and ``qblocks.covers``
         with the card's ``limits``. Int8 dense layers and the ``wpack2``
@@ -358,12 +360,18 @@ class Engine:
         (the reference's XLA fallback, ``tf2_tpu/kernels/dispatch.py``,
         made at load). ``shapes``:
         the values' shapes where the graph alone does not give them (a tp
-        rank's graph, whose sliced nodes' outputs are gathered)."""
+        rank's graph, whose sliced nodes' outputs are gathered). Counts the
+        nodes it leaves plain and those it gives ``qdwconv`` in the span
+        recorder (``engine.plain_nodes``, ``engine.dwconv_nodes``)."""
         shapes = shapes or activation_shapes(graph, params)
         rejected = set()
+        dwconv = 0
         for n in graph.nodes:
             pot4 = n.attrs.get("wfmt") == "pot4"
-            if n.op == "qconv2d" and n.attrs.get("wfmt") != "wpack2":
+            if n.op == "qconv2d" and dispatch.depthwise(n, shapes[n.inputs[0]]):
+                takes = not pot4
+                dwconv += takes
+            elif n.op == "qconv2d" and n.attrs.get("wfmt") != "wpack2":
                 takes = (_packed_kernel_takes(n) if pot4 else qconv.covers(
                     n.attrs["kshape"], n.attrs.get("strides", [1, 1]), n.attrs.get("groups", 1)))
             elif n.op == "qdense":
@@ -382,6 +390,8 @@ class Engine:
                 continue
             if not takes:
                 rejected.add(n.name)
+        spans.count("engine.plain_nodes", len(rejected))
+        spans.count("engine.dwconv_nodes", dwconv)
         return frozenset(rejected)
 
     @staticmethod

@@ -16,8 +16,14 @@ none; an ``engine.call`` span's is its own id). Two kinds:
   to a list, which a long-running process keeps whole; each nests under
   the set-up span open on its thread. Their ids are negative.
 
-Counters (``count``) are plain integers beside the spans:
-``kernels.compiled``, the sources nvcc compiled in this process.
+Counters (``count``) are plain integers beside the spans, over the whole
+process:
+
+| counter | where |
+|---|---|
+| ``kernels.compiled`` | ``kernels/build.build_all``: the sources nvcc compiled |
+| ``engine.plain_nodes`` | ``Engine.plan``: the nodes it leaves to a plain version on the card, summed over the plans made |
+| ``engine.dwconv_nodes`` | ``Engine.plan``: the depthwise convs it gives the ``qdwconv`` kernel, summed the same way |
 
 The spans:
 
@@ -47,6 +53,7 @@ from typing import NamedTuple
 import torch
 
 RING = 1 << 18
+COUNTERS = ("kernels.compiled", "engine.plain_nodes", "engine.dwconv_nodes")
 
 _profiling = torch._C._autograd._profiler_enabled
 _NO_RANGE = contextlib.nullcontext()
@@ -93,7 +100,7 @@ class Recorder:
         self._setup: list[Span] = []
         self._open = threading.local()        # the set-up spans open on each thread
         self._lock = threading.Lock()         # the counters'
-        self._counters = {"kernels.compiled": 0}
+        self._counters = dict.fromkeys(COUNTERS, 0)
 
     # ---- call spans ----
 

@@ -4,6 +4,10 @@ conv2d/dense.
 w' = w * (gamma / sqrt(var + eps))   (over the output-channel axis, last in
                                       HWIO and (Cin, Cout) layouts)
 b' = (b - mean) * gamma / sqrt(var + eps) + beta
+
+A ``layer_scale`` (ConvNeXt's gamma) folds the same way, as a batch norm
+with mean 0, offset 0 and gamma / sqrt(var + eps) = gamma: w' = w * gamma,
+b' = b * gamma.
 """
 from __future__ import annotations
 
@@ -13,8 +17,9 @@ from ..graph.ir import Graph, Node, TensorSpec
 
 
 def fold_batch_norm(graph: Graph, params: dict) -> tuple[Graph, dict]:
-    """Returns (new_graph, new_params). BN nodes whose sole producer is a
-    conv2d/dense are folded away; any BN that can't fold stays."""
+    """Returns (new_graph, new_params). BN and layer-scale nodes whose
+    sole producer is a conv2d/dense are folded away; any that can't fold
+    stays."""
     node_map = graph.node_map()
     consumers = graph.consumers()
     new_params = dict(params)
@@ -23,7 +28,7 @@ def fold_batch_norm(graph: Graph, params: dict) -> tuple[Graph, dict]:
     add_bias: dict[str, str] = {}  # conv node name -> new bias param name
 
     for node in graph.nodes:
-        if node.op != "batch_norm":
+        if node.op not in ("batch_norm", "layer_scale"):
             continue
         src = node.inputs[0]
         prod = node_map.get(src)
@@ -31,9 +36,13 @@ def fold_batch_norm(graph: Graph, params: dict) -> tuple[Graph, dict]:
             continue
         if len(consumers.get(src, [])) != 1:
             continue  # conv output used elsewhere: folding would change it
-        scale, offset, mean, var = (np.asarray(params[p], np.float32)
-                                    for p in node.params)
-        inv = scale / np.sqrt(var + node.attrs.get("eps", 1e-5))
+        if node.op == "layer_scale":
+            inv = np.asarray(params[node.params[0]], np.float32)
+            mean = offset = np.float32(0)
+        else:
+            scale, offset, mean, var = (np.asarray(params[p], np.float32)
+                                        for p in node.params)
+            inv = scale / np.sqrt(var + node.attrs.get("eps", 1e-5))
         wname = prod.params[0]
         w = np.asarray(params[wname], np.float32)
         new_params[wname] = w * inv

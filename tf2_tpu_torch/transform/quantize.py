@@ -283,6 +283,12 @@ def quantize_graph(graph: Graph, params: Mapping[str, np.ndarray],
 
         if spec.int8_residual and node.op in ("layer_norm", "gelu", "bias_add"):
             nv, s_in = val[node.inputs[0]]
+            if (node.op == "layer_norm" and s_in is None and node.name in act_scales
+                    and node.inputs[0] in act_scales):
+                # an f32 input (ConvNeXt's head: the pool's mean) is
+                # quantized onto its own grid first; the reference's
+                # quantizer, which never meets one, keeps such a norm f32
+                nv, s_in = get_q8(node.inputs[0])
             if s_in is not None and node.name in act_scales:
                 s_out = float(act_scales[node.name])
                 attrs = {"s_in": s_in, "s_out": s_out}
