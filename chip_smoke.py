@@ -105,11 +105,15 @@ Phases, in order; any failure exits non-zero before the last line:
              mismatches; vit_b16's 25 nodes timed at batch 64 (host-launched
              into the kernels line, beside F.layer_norm on the dequantized
              f32 rows; kernel and plain version in CUDA graphs; the bound).
-             Then both Engines as in phase 5: launch counts 0 / 50 / 0 / 0 /
-             0 / 0 / 12 / 0 / 0 / 0 / 25 a forward, every node equal to the
-             plain path and at batch 1 to the CPU Engine, finite (B, 1000)
-             logits, Engine.benchmark; vit_b16's built b64 forward profiled
-             (the qlayernorm kernels' device time inside the replay, 25 a
+             Every qgelu node against qgelu_plain on its real input at both
+             batches, and the first on every code, random and +-127 codes,
+             0 mismatches; vit_b16's 12 nodes timed at batch 64 (outside
+             the kernels line). Then both Engines as in phase 5: launch
+             counts 0 / 50 / 0 / 0 / 0 / 0 / 12 / 0 / 0 / 0 / 25 / 0 / 12 a
+             forward, every node equal to the plain path and at batch 1 to
+             the CPU Engine, finite (B, 1000) logits, Engine.benchmark;
+             vit_b16's built b64 forward profiled (the qlayernorm and qgelu
+             kernels' device time inside the replay, 25 and 12 a
              forward).
 11. stem Engines  (after phase 7) ResNet-50's Engine(phase_stem=True) and
              Engine(optimize=True) as phases 4-5: every conv node against
@@ -291,18 +295,23 @@ Phases, in order; any failure exits non-zero before the last line:
              conv and dense node as in phase 4, every depthwise conv on the
              qdwconv kernel against its plain version; both batches as
              phase 7 (launch counts 39 / 2 / 0 / 0 / 0 / 0 / 0 / 0 / 0 /
-             0 / 23 / 18); each depthwise shape at b64 timed in a CUDA
+             0 / 23 / 18 / 18); every qgelu node as in phase 10, each
+             qgelu shape at b64 timed (the kernels line's qgelu row:
+             host-launched, kernel and plain version in CUDA graphs, the
+             bound); each depthwise shape at b64 timed in a CUDA
              graph and host-launched beside the plain version, a bf16
              grouped F.conv2d and its bound (the kernels line's qdwconv
              row); both Engines built as phase 16 and the b64 replay
-             profiled (18 qdwconv launches a forward); the share of +-127
+             profiled (18 qdwconv and 18 qgelu launches a forward); the
+             share of +-127
              codes in stage 4's residual stream.
 Every zoo Engine on the card (phases 3-14, 23) must have empty plain_nodes:
 the coverage plan sends none of the zoo's nodes to a plain version.
 Launch counts are in the order (qmatmul_pot4, qmatmul_int8, qconv_s1,
 qconv_s2, qblockchain, qlrn, qattention, qconv_s2x1, qstem, nms,
-qlayernorm, qdwconv); nms is 0 on every path but SSD's, qdwconv on every
-path but ConvNeXt's, and the lists above leave them off. Prints the
+qlayernorm, qdwconv, qgelu); nms is 0 on every path but SSD's, qdwconv on
+every path but ConvNeXt's, qgelu on every path but ViT's and ConvNeXt's,
+and the lists above leave them off. Prints the
 headline bench's line, the summary line (every path's numbers, the stem
 routes, the captured forwards, the routes, serving, parallelism, the tools,
 the wall time),
@@ -311,9 +320,10 @@ the conv and GEMM kernels' from phase 5's unfused Engine, which runs every
 conv (the default's chains take the 3x3s and most GEMMs, phase 7),
 qblockchain's from phase 7, qconv_s2x1's from phase 11's phase_stem
 Engine, qlrn's from phase 8, qattention's and qlayernorm's from phase 10,
-nms's from phase 13's SSD, each entry's launches_from naming the Engine;
-times at ResNet-50's shapes, qlrn's at GoogLeNet's, qattention's and
-qlayernorm's at vit_b16's, nms's at SSD's), the card line
+nms's from phase 13's SSD, qdwconv's and qgelu's from phase 23, each
+entry's launches_from naming the Engine; times at ResNet-50's shapes,
+qlrn's at GoogLeNet's, qattention's and qlayernorm's at vit_b16's, nms's at
+SSD's, qdwconv's and qgelu's at ConvNeXt-T's), the card line
 and, last, the contract line; the per-shape timings go to stderr as one
 JSON line.
 """
@@ -361,6 +371,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     # grouped convs (the reference has no ConvNeXt)
     "qdwconv": ("tf2_tpu_torch/kernels/csrc/qdwconv.cu",
                 "tf2_tpu/kernels/dispatch.py:191 (grouped conv, XLA not Pallas)"),
+    # the int8 GELU, which the reference gathers from a 256-entry table in XLA
+    "qgelu": ("tf2_tpu_torch/kernels/csrc/qgelu.cu",
+              "tf2_tpu/kernels/dispatch.py:421 (qgelu, XLA not Pallas)"),
 }
 KERNEL_NAMES = tuple(KERNELS)
 
@@ -372,11 +385,11 @@ def _launches(*counts):
 
 
 # launches a forward: (pot4 GEMM, int8 GEMM, conv s1, conv s2, chain, qlrn,
-# attention, conv s2x1, stem, nms, layer norm, depthwise conv)
-EXPECTED_LAUNCHES = _launches(33, 1, 13, 6, 0, 0, 0, 0, 1, 0, 0, 0)
-FUSED_LAUNCHES = _launches(6, 1, 0, 6, 4, 0, 0, 0, 1, 0, 0, 0)
-STEM_LAUNCHES = {"phase_stem": _launches(33, 1, 13, 6, 0, 0, 0, 1, 0, 0, 0, 0),
-                 "optimize": _launches(33, 1, 14, 6, 0, 0, 0, 0, 0, 0, 0, 0)}
+# attention, conv s2x1, stem, nms, layer norm, depthwise conv, GELU)
+EXPECTED_LAUNCHES = _launches(33, 1, 13, 6, 0, 0, 0, 0, 1, 0, 0, 0, 0)
+FUSED_LAUNCHES = _launches(6, 1, 0, 6, 4, 0, 0, 0, 1, 0, 0, 0, 0)
+STEM_LAUNCHES = {"phase_stem": _launches(33, 1, 13, 6, 0, 0, 0, 1, 0, 0, 0, 0, 0),
+                 "optimize": _launches(33, 1, 14, 6, 0, 0, 0, 0, 0, 0, 0, 0, 0)}
 # the default Engine fuses the bottleneck chains (block_fusion, on by
 # default since the card measured it); the others run every block's convs
 RESNET_OPTIONS = {"unfused": {"block_fusion": False}, "default": {},
@@ -384,17 +397,17 @@ RESNET_OPTIONS = {"unfused": {"block_fusion": False}, "default": {},
                   "optimize": {"optimize": True, "block_fusion": False}}
 ZOO_OPTIONS = {"default": {}, "merge_1x1": {"merge_1x1": True}}
 ZOO_LAUNCHES = {  # model -> {option: launches}
-    "googlenet": {"default": _launches(37, 1, 19, 0, 0, 2, 0, 0, 1, 0, 0, 0),
-                  "merge_1x1": _launches(10, 10, 19, 0, 0, 2, 0, 0, 1, 0, 0, 0)},
-    "squeezenet_v1_1": {"default": _launches(16, 1, 8, 0, 0, 0, 0, 0, 1, 0, 0, 0),
-                        "merge_1x1": _launches(12, 1, 8, 0, 0, 0, 0, 0, 1, 0, 0, 0)},
+    "googlenet": {"default": _launches(37, 1, 19, 0, 0, 2, 0, 0, 1, 0, 0, 0, 0),
+                  "merge_1x1": _launches(10, 10, 19, 0, 0, 2, 0, 0, 1, 0, 0, 0, 0)},
+    "squeezenet_v1_1": {"default": _launches(16, 1, 8, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0),
+                        "merge_1x1": _launches(12, 1, 8, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0)},
 }
-VIT_LAUNCHES = _launches(0, 50, 0, 0, 0, 0, 12, 0, 0, 0, 25, 0)
-SSD_LAUNCHES = _launches(0, 0, 8, 5, 0, 0, 0, 0, 1, 1, 0, 0)
+VIT_LAUNCHES = _launches(0, 50, 0, 0, 0, 0, 12, 0, 0, 0, 25, 0, 12)
+SSD_LAUNCHES = _launches(0, 0, 8, 5, 0, 0, 0, 0, 1, 1, 0, 0, 0)
 # ConvNeXt-T: 36 pointwise convs and 3 patchified downsamples on the pot4
 # GEMM, the patchified stem and the classifier on the int8 one, 23 layer
-# norms, 18 depthwise convs
-CONVNEXT_LAUNCHES = _launches(39, 2, 0, 0, 0, 0, 0, 0, 0, 0, 23, 18)
+# norms, 18 depthwise convs, 18 GELUs
+CONVNEXT_LAUNCHES = _launches(39, 2, 0, 0, 0, 0, 0, 0, 0, 0, 23, 18, 18)
 # ConvNeXt-T's blocks a stage (the depthwise convs of each shape a forward)
 CONVNEXT_DEPTHS = (3, 3, 9, 3)
 # f32 operations of one IoU and its compare (csrc/nms.cu: two minima, two
@@ -572,6 +585,8 @@ def _call(node, params, x_q, plain=False):
         return dispatch.qlrn(node, params, x_q, plain=plain)
     if node.op == "qlayernorm":
         return dispatch.qlayernorm(node, params, x_q, plain=plain)
+    if node.op == "qgelu":
+        return dispatch.qgelu(node, params, x_q, plain=plain)
     return dispatch.qdense(node, params, x_q, plain=plain)
 
 
@@ -596,6 +611,8 @@ def _bound_ms(node, params, x_q, y) -> tuple[float, float]:
         return _qattention_bound_ms(node, x_q)
     if node.op == "qlayernorm":
         return _qlayernorm_bound_ms(x_q)
+    if node.op == "qgelu":
+        return _qgelu_bound_ms(x_q)
     nbytes, ops = _work(node, params, x_q, y)
     return nbytes / H100_BYTES_PER_S * 1e3, ops / H100_INT8_OPS_PER_S * 1e3
 
@@ -622,6 +639,12 @@ def _qlayernorm_bound_ms(x_q) -> tuple[float, float]:
     d = x_q.shape[-1]
     m = x_q.numel() // d
     return (2 * m * d + 8 * d) / H100_BYTES_PER_S * 1e3, 8 * m * d / H100_F32_OPS_PER_S * 1e3
+
+
+def _qgelu_bound_ms(x_q) -> tuple[float, float]:
+    """qgelu reads each int8 input once and the 256-byte table once, and
+    writes each output once; a lookup is no arithmetic operation."""
+    return (2 * x_q.numel() + 256) / H100_BYTES_PER_S * 1e3, 0.0
 
 
 def _qattention_bound_ms(node, qkv) -> tuple[float, float]:
@@ -709,7 +732,8 @@ def _library(node, params, x_q):
     H100 80GB HBM3, 700 W), bf16 F.conv2d for convs,
     F.local_response_norm on the dequantized f32 tensor (its NCHW view,
     alpha times the window so that its alpha / n is the node's alpha) for
-    qlrn, F.layer_norm on the dequantized f32 rows for qlayernorm,
+    qlrn, F.layer_norm on the dequantized f32 rows for qlayernorm, the
+    tanh F.gelu on the dequantized f32 tensor for qgelu,
     F.scaled_dot_product_attention on the dequantized bf16 q, k, v
     (N, heads, T, hd) for qattention. No single PyTorch call computes a
     chain of bottleneck blocks: None."""
@@ -732,6 +756,9 @@ def _library(node, params, x_q):
         gamma, beta = params[node.params[0]], params[node.params[1]]
         eps = node.attrs.get("eps", 1e-6)
         return lambda: F.layer_norm(xf, xf.shape[-1:], gamma, beta, eps)
+    if node.op == "qgelu":
+        xf = x_q.to(torch.float32) * node.attrs["s_in"]
+        return lambda: F.gelu(xf, approximate="tanh")
     if node.op == "qlrn":
         a = node.attrs
         size = 2 * a["radius"] + 1
@@ -1077,6 +1104,8 @@ class KernelStats:
             shape = {"heads": node.attrs["heads"], "dim": node.attrs["dim"]}
         elif node.op == "qlayernorm":
             shape = {"width": int(x_q.shape[-1])}
+        elif node.op == "qgelu":
+            shape = {"elements": int(x_q.numel())}
         else:
             shape = {"kshape": node.attrs["kshape"], "strides": node.attrs.get("strides"),
                      "wfmt": node.attrs["wfmt"], "residual": isinstance(x_q, tuple)}
@@ -1606,24 +1635,83 @@ def phase_qlayernorm(engines, plain_envs, stats, timed: bool) -> dict:
     return summary
 
 
-def _qlayernorm_in_replay(engine, image) -> dict:
-    """The qlayernorm kernels inside the built forward's replays: a
-    torch.profiler trace of 5 replays (``runtime/profile.profile``); their
-    device ms and launches a forward, which must be 25."""
+def _in_replay(engine, image, want: dict[str, int]) -> dict:
+    """The named kernels inside the built forward's replays: a
+    torch.profiler trace of 5 replays (``runtime/profile.profile``); each
+    family's device ms and launches a forward, which must be ``want``'s
+    (family -> launches). -> {family: {ms_per_forward,
+    launches_per_forward}, forward_busy_ms, by_family}."""
     from tf2_tpu_torch.runtime import profile
 
     with tempfile.TemporaryDirectory() as d:
         report = profile.profile(engine, image, f"{d}/trace.json")
-    fam = report["by_family"].get("qlayernorm", {"ms_per_forward": 0.0,
-                                                  "launches_per_forward": 0})
-    if report["by_family"] and round(fam["launches_per_forward"]) != 25:
-        raise RuntimeError(f"qlayernorm: {fam['launches_per_forward']} launches a replayed "
-                           f"forward, expected 25: {report['by_family']}")
-    out = {"ms_per_forward": fam["ms_per_forward"],
-           "launches_per_forward": fam["launches_per_forward"],
-           "forward_busy_ms": report["device_busy_ms_per_forward"]}
-    log(f"qlayernorm in the b64 replay: {out}")
+    out = {"forward_busy_ms": report["device_busy_ms_per_forward"],
+           "by_family": report["by_family"]}
+    for name, launches in want.items():
+        fam = report["by_family"].get(name, {"ms_per_forward": 0.0, "launches_per_forward": 0})
+        if report["by_family"] and round(fam["launches_per_forward"]) != launches:
+            raise RuntimeError(f"{name}: {fam['launches_per_forward']} launches a replayed "
+                               f"forward, expected {launches}: {report['by_family']}")
+        out[name] = {"ms_per_forward": fam["ms_per_forward"],
+                     "launches_per_forward": fam["launches_per_forward"]}
+        log(f"{name} in the b64 replay: {out[name]}; forward busy "
+            f"{out['forward_busy_ms']:.4f} ms")
     return out
+
+
+def phase_qgelu(engines, plain_envs, stats, timed: bool, total: bool) -> dict:
+    """Holds every qgelu node against ``qgelu_plain`` on its real input at
+    each batch, and the first node on every code (each of the 256 in turn
+    over its shape), random and +-127 codes (0 mismatches). When ``timed``,
+    one node of each input shape at batch 64, as many times as the forward
+    has nodes of that shape: host-launched (kernel, plain, the tanh F.gelu,
+    bound; into the kernels line when ``total``), and the kernel and the
+    plain version each captured in a CUDA graph (device times, the best of
+    3 replays). Returns the sums over the nodes of a b64 forward (ms)."""
+    from tf2_tpu_torch.kernels import autotune
+
+    rng = np.random.default_rng(11)
+    summary = {}
+    for b, eng in engines.items():
+        nodes = [n for n in eng.graph.nodes if n.op == "qgelu"]
+        for node in nodes:
+            stats.compare("qgelu", node, eng.params, plain_envs[b][node.inputs[0]],
+                          f"b{b} main-path input")
+        x = plain_envs[b][nodes[0].inputs[0]]
+        every = torch.arange(-128, 128, dtype=torch.int8, device=x.device).repeat(
+            -(-x.numel() // 256))[:x.numel()].reshape(x.shape)
+        for what, xr in (("every code", every), ("random", _random_like(rng, x)),
+                         ("+-127", _random_pm127(rng, x))):
+            stats.compare("qgelu", nodes[0], eng.params, xr, f"b{b} {what}")
+        if b != 64 or not timed:
+            continue
+        by_shape = {}
+        for node in nodes:
+            by_shape.setdefault(tuple(plain_envs[b][node.inputs[0]].shape), []).append(node)
+        sums = {"nodes": len(nodes), "kernel_ms": 0.0, "kernel_device_ms": 0.0,
+                "plain_device_ms": 0.0, "bound_ms": 0.0}
+        for shape, group in by_shape.items():
+            node, x = group[0], plain_envs[b][group[0].inputs[0]]
+            stats.time("qgelu", node, eng.params, x, None, len(group), total=total)
+            graph_ms = min(autotune.graph_ms(lambda n=node, v=x: _call(n, eng.params, v), 20,
+                                             reps=3))
+            plain_ms = min(autotune.graph_ms(
+                lambda n=node, v=x: _call(n, eng.params, v, plain=True), 3, reps=3))
+            bound = _qgelu_bound_ms(x)[0]
+            sums["kernel_ms"] += stats.rows[-1]["ms"] * len(group)
+            sums["kernel_device_ms"] += graph_ms * len(group)
+            sums["plain_device_ms"] += plain_ms * len(group)
+            sums["bound_ms"] += bound * len(group)
+            log(f"qgelu {node.name} {list(shape)} x{len(group)}: {graph_ms:.5f} ms device "
+                f"({stats.rows[-1]['ms']:.5f} host-launched), plain {plain_ms:.4f}, "
+                f"F.gelu {stats.rows[-1]['library_ms']:.5f}, bound {bound:.5f} "
+                f"({bound / graph_ms:.1%})")
+        summary["b64"] = sums
+        log(f"qgelu b64, {len(nodes)} nodes: {sums}")
+    stats.raise_on_mismatch("the GELU kernel disagrees with its plain version")
+    log(f"qgelu: {stats.k['qgelu']['checks']} checks, max |err| "
+        f"{stats.k['qgelu']['max_abs_err']}")
+    return summary
 
 
 def phase_vit(name, images, stats):
@@ -1631,18 +1719,21 @@ def phase_vit(name, images, stats):
     (with and without a residual) against its plain version, timed per
     shape outside the kernels line when the model is vit_b16; every
     qattention_core and qlayernorm node (timed into the kernels line for
-    vit_b16); both batches through phase_main; vit_b16's Engines built and
+    vit_b16); every qgelu node (vit_b16's timed outside the kernels line);
+    both batches through phase_main; vit_b16's Engines built and
     the b64 replay profiled. Returns (launches per b64 forward, summary)."""
     engines, cpu_engine = phase_vit_artifact(name)
     timed = name == "vit_b16"
     envs = phase_kernels(engines, images, stats, timed=timed, total=False)
     phase_qattention(engines, envs, stats, timed)
     layernorm = phase_qlayernorm(engines, envs, stats, timed)
+    gelu = phase_qgelu(engines, envs, stats, timed, total=False)
     launches, summary, _ = phase_main(name, engines, cpu_engine, images, envs, VIT_LAUNCHES)
-    summary["qlayernorm"] = layernorm
+    summary["qlayernorm"], summary["qgelu"] = layernorm, gelu
     if name == "vit_b16":
         summary["captured"] = phase_captured(name, engines, summary, seed=19)
-        summary["qlayernorm"]["in_replay_b64"] = _qlayernorm_in_replay(engines[64], images[64])
+        summary["in_replay_b64"] = _in_replay(engines[64], images[64],
+                                              {"qlayernorm": 25, "qgelu": 12})
     log(f"{name}: kernels " + ", ".join(f"{k} {v['checks']} checks" for k, v in stats.k.items()))
     return launches, summary
 
@@ -1716,27 +1807,6 @@ def _dwconv_work(x_q, k: int) -> tuple[float, float]:
     return nbytes / H100_BYTES_PER_S * 1e3, 2.0 * b * ty * tx * c / H100_INT8_OPS_PER_S * 1e3
 
 
-def _dwconv_in_replay(engine, image) -> dict:
-    """The qdwconv kernels inside the built forward's replays (a
-    torch.profiler trace of 5, ``runtime/profile.profile``): their device
-    ms and launches a forward, which must be 18."""
-    from tf2_tpu_torch.runtime import profile
-
-    with tempfile.TemporaryDirectory() as d:
-        report = profile.profile(engine, image, f"{d}/trace.json")
-    fam = report["by_family"].get("qdwconv", {"ms_per_forward": 0.0, "launches_per_forward": 0})
-    if report["by_family"] and round(fam["launches_per_forward"]) != 18:
-        raise RuntimeError(f"qdwconv: {fam['launches_per_forward']} launches a replayed "
-                           f"forward, expected 18: {report['by_family']}")
-    out = {"ms_per_forward": fam["ms_per_forward"],
-           "launches_per_forward": fam["launches_per_forward"],
-           "forward_busy_ms": report["device_busy_ms_per_forward"],
-           "by_family": report["by_family"]}
-    log(f"qdwconv in the b64 replay: {fam}; forward busy "
-        f"{report['device_busy_ms_per_forward']:.4f} ms")
-    return out
-
-
 def phase_convnext(stats, smi: str) -> tuple[dict, dict]:
     """Phase 23: full-width ConvNeXt-T W4-PoT (224x224, 1000 classes) from
     its synthetic artifact (saved and loaded back): Engines at batch 64 and
@@ -1762,16 +1832,20 @@ def phase_convnext(stats, smi: str) -> tuple[dict, dict]:
     after = spans.counters()
     plain = after["engine.plain_nodes"] - before["engine.plain_nodes"]
     dwconv = after["engine.dwconv_nodes"] - before["engine.dwconv_nodes"]
-    if plain or dwconv != 18 * len(engines):
+    gelu = after["engine.qgelu_nodes"] - before["engine.qgelu_nodes"]
+    if plain or dwconv != 18 * len(engines) or gelu != 18 * len(engines):
         raise RuntimeError(f"convnext_t: engine.plain_nodes +{plain}, engine.dwconv_nodes "
-                           f"+{dwconv} for {len(engines)} Engines")
+                           f"+{dwconv}, engine.qgelu_nodes +{gelu} for {len(engines)} Engines")
     rng = np.random.default_rng(23)
     images = {b: torch.as_tensor(rng.standard_normal((b, 224, 224, 3), dtype=np.float32)).cuda()
               for b in engines}
     envs = phase_kernels(engines, images, stats, timed=False)
+    gelu_summary = phase_qgelu(engines, envs, stats, timed=True, total=True)
     launches, summary, _ = phase_main("convnext_t", engines, cpu_engine, images, envs,
                                       CONVNEXT_LAUNCHES, graph=art[0])
-    summary["counters"] = {"engine.plain_nodes": plain, "engine.dwconv_nodes": dwconv}
+    summary["qgelu"] = gelu_summary
+    summary["counters"] = {"engine.plain_nodes": plain, "engine.dwconv_nodes": dwconv,
+                           "engine.qgelu_nodes": gelu}
     eng = engines[64]
     dws = [n for n in eng.graph.nodes if n.op == "qconv2d" and n.attrs.get("groups", 1) > 1]
     rows, sums = [], {"kernel_device_ms": 0.0, "kernel_ms": 0.0, "plain_device_ms": 0.0,
@@ -1812,7 +1886,7 @@ def phase_convnext(stats, smi: str) -> tuple[dict, dict]:
     summary["stage4_stream_pm127_share"] = float(
         sum(int((a.abs() == 127).sum()) for a in adds) / sum(a.numel() for a in adds))
     summary["captured"] = phase_captured("convnext_t", engines, summary, seed=24)
-    summary["qdwconv"]["in_replay_b64"] = _dwconv_in_replay(eng, images[64])
+    summary["in_replay_b64"] = _in_replay(eng, images[64], {"qdwconv": 18, "qgelu": 18})
     summary["seconds"] = time.time() - t0
     summary["card"] = smi
     log(f"convnext_t: phase 23 took {summary['seconds']:.1f} s; stage-4 stream +-127 share "
@@ -3359,7 +3433,8 @@ def main() -> int:
     zoo["vit_b16_cls_384"] = phase_vit384(stats)
     zoo["coverage"] = phase_coverage()
     dw_launches, zoo["convnext_t"] = phase_convnext(stats, smi)
-    launches["qdwconv"], launches_from["qdwconv"] = dw_launches["qdwconv"], "convnext_t b64"
+    for name in ("qdwconv", "qgelu"):
+        launches[name], launches_from[name] = dw_launches[name], "convnext_t b64"
     zoo["transform"] = phase_transform(stats)
     if not all(launches.values()):
         raise RuntimeError(f"kernels launched no time on their paths: {launches}")

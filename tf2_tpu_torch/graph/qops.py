@@ -38,9 +38,9 @@ def _qlayernorm(node, params, x, plain=False):
     return dispatch.qlayernorm(node, params, x, plain=plain)
 
 
-@register_op("qgelu")
-def _qgelu(node, params, x):
-    return dispatch.qgelu(node, params, x)
+@register_op("qgelu", kernel=True)
+def _qgelu(node, params, x, plain=False):
+    return dispatch.qgelu(node, params, x, plain=plain)
 
 
 @register_op("qbias_add")

@@ -8,12 +8,12 @@ the weights their wrappers had to prepare (into the kernel's layout) on a
 call (``prepared_per_call``; the Engine prepares them at load, so its
 forwards count none); the reset clears those too.
 """
-from . import (detection, qattention, qblocks, qconv, qdwconv, qlayernorm, qlrn, qstem,
-               shift_matmul)
+from . import (detection, qattention, qblocks, qconv, qdwconv, qgelu, qlayernorm, qlrn,
+               qstem, shift_matmul)
 
 _COUNTS = (shift_matmul.LAUNCHES, qconv.LAUNCHES, qblocks.LAUNCHES, qlrn.LAUNCHES,
            qattention.LAUNCHES, qstem.LAUNCHES, detection.LAUNCHES, qlayernorm.LAUNCHES,
-           qdwconv.LAUNCHES)
+           qdwconv.LAUNCHES, qgelu.LAUNCHES)
 _PREPARED = (shift_matmul.PREPARED_PER_CALL, qblocks.PREPARED_PER_CALL,
              qstem.PREPARED_PER_CALL)
 

@@ -27,7 +27,7 @@ CACHE_ENV = "TF2TPU_TORCH_KERNEL_CACHE"
 DEFAULT_BUILD_DIR = Path(__file__).with_name("build")
 BUILD_DIR = Path(os.environ.get(CACHE_ENV) or DEFAULT_BUILD_DIR)
 SOURCES = ("shift_matmul.cu", "qconv.cu", "qblocks.cu", "qlrn.cu", "qattention.cu",
-           "qstem.cu", "nms.cu", "qlayernorm.cu", "qdwconv.cu")
+           "qstem.cu", "nms.cu", "qlayernorm.cu", "qdwconv.cu", "qgelu.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,8 +1,8 @@
 """Executors of the fused quantized ops on torch tensors: every conv and
 dense layer (the k x k depthwise convs on ``qdwconv``), every attention
-core and every int8 layer norm goes through one of the CUDA kernels (or,
-with ``plain=True`` or on the CPU, through that kernel's plain version).
-The rest of the transformer glue (``qgelu``, ``qbias_add``) is plain
+core, every int8 layer norm and every int8 GELU goes through one of the
+CUDA kernels (or, with ``plain=True`` or on the CPU, through that kernel's
+plain version). The rest of the transformer glue (``qbias_add``) is plain
 PyTorch on either device, as the reference computes it outside any kernel,
 in steps that give the same bits on the card and the CPU.
 
@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build, qattention, qblocks, qconv, qdwconv, qlrn as qlrn_kernel, qstem, shift_matmul
+from . import qgelu as qgelu_kernel
 from . import qlayernorm as qlayernorm_kernel
 
 ROUTES = ("kernel", "kernel_int8", "library")
@@ -273,12 +274,12 @@ def _qgelu_table(s_in: float, s_out: float, device: torch.device) -> torch.Tenso
     return _requant(y / torch.tensor(build.f32(s_out))).to(device)
 
 
-def qgelu(node, params, x_q: torch.Tensor) -> torch.Tensor:
-    """dequantize -> gelu -> quantize as one gather from a 256-entry table
-    (an int8 input has 255 values): the table is built on the CPU, so every
-    device gives its bits."""
+def qgelu(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """dequantize -> gelu -> quantize as one lookup in a 256-entry table (an
+    int8 input has 256 values; kernels/qgelu.py): the table is built on the
+    CPU, so every device gives its bits."""
     table = _qgelu_table(float(node.attrs["s_in"]), float(node.attrs["s_out"]), x_q.device)
-    return table[x_q.to(torch.int64) + 128]
+    return (qgelu_kernel.qgelu_plain if plain else qgelu_kernel.qgelu)(x_q, table)
 
 
 def qbias_add(node, params, x_q: torch.Tensor) -> torch.Tensor:

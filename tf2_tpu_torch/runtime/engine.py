@@ -355,17 +355,19 @@ class Engine:
         one, which ``predecode=False`` leaves packed, runs plain),
         ``qattention.covers`` for an attention core, ``qlayernorm.covers``
         for a layer norm's width, ``qlrn.covers`` and ``qblocks.covers``
-        with the card's ``limits``. Int8 dense layers and the ``wpack2``
-        stem always have a kernel, and the rest of the int8 glue needs none
+        with the card's ``limits``. Int8 dense layers, the ``wpack2`` stem
+        and the int8 GELU (any contiguous int8 tensor) always have a
+        kernel, and the rest of the int8 glue needs none
         (the reference's XLA fallback, ``tf2_tpu/kernels/dispatch.py``,
         made at load). ``shapes``:
         the values' shapes where the graph alone does not give them (a tp
         rank's graph, whose sliced nodes' outputs are gathered). Counts the
-        nodes it leaves plain and those it gives ``qdwconv`` in the span
-        recorder (``engine.plain_nodes``, ``engine.dwconv_nodes``)."""
+        nodes it leaves plain and those it gives ``qdwconv`` and ``qgelu``
+        in the span recorder (``engine.plain_nodes``,
+        ``engine.dwconv_nodes``, ``engine.qgelu_nodes``)."""
         shapes = shapes or activation_shapes(graph, params)
         rejected = set()
-        dwconv = 0
+        dwconv = gelu = 0
         for n in graph.nodes:
             pot4 = n.attrs.get("wfmt") == "pot4"
             if n.op == "qconv2d" and dispatch.depthwise(n, shapes[n.inputs[0]]):
@@ -386,12 +388,16 @@ class Engine:
             elif n.op == "qblockchain":
                 takes = qblocks.covers(shapes[n.inputs[0]], dispatch.chain_blocks(n, params),
                                        limits.smem_per_block)
+            elif n.op == "qgelu":
+                takes = True
+                gelu += 1
             else:
                 continue
             if not takes:
                 rejected.add(n.name)
         spans.count("engine.plain_nodes", len(rejected))
         spans.count("engine.dwconv_nodes", dwconv)
+        spans.count("engine.qgelu_nodes", gelu)
         return frozenset(rejected)
 
     @staticmethod

@@ -24,6 +24,7 @@ process:
 | ``kernels.compiled`` | ``kernels/build.build_all``: the sources nvcc compiled |
 | ``engine.plain_nodes`` | ``Engine.plan``: the nodes it leaves to a plain version on the card, summed over the plans made |
 | ``engine.dwconv_nodes`` | ``Engine.plan``: the depthwise convs it gives the ``qdwconv`` kernel, summed the same way |
+| ``engine.qgelu_nodes`` | ``Engine.plan``: the int8 GELUs it gives the ``qgelu`` kernel, summed the same way |
 
 The spans:
 
@@ -53,7 +54,8 @@ from typing import NamedTuple
 import torch
 
 RING = 1 << 18
-COUNTERS = ("kernels.compiled", "engine.plain_nodes", "engine.dwconv_nodes")
+COUNTERS = ("kernels.compiled", "engine.plain_nodes", "engine.dwconv_nodes",
+            "engine.qgelu_nodes")
 
 _profiling = torch._C._autograd._profiler_enabled
 _NO_RANGE = contextlib.nullcontext()
