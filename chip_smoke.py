@@ -291,7 +291,8 @@ Phases, in order; any failure exits non-zero before the last line:
              printed with the card; the phase's seconds by step.
 23. convnext (run after phase 15) full-width ConvNeXt-T W4-PoT (224x224,
              1000 classes): Engines at batch 64 and 1 with no plain node
-             (engine.plain_nodes 0, engine.dwconv_nodes 18 each); every
+             (engine.plain_nodes 0; Engine.kernels: 18 qdwconv and 18
+             qgelu nodes each); every
              conv and dense node as in phase 4, every depthwise conv on the
              qdwconv kernel against its plain version; both batches as
              phase 7 (launch counts 39 / 2 / 0 / 0 / 0 / 0 / 0 / 0 / 0 /
@@ -335,6 +336,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -571,23 +573,16 @@ def _main_input(x_q):
 
 
 def _call(node, params, x_q, plain=False):
+    """The node's executor on its plain version, or (``plain`` False) on the
+    kernel ``dispatch.kernel_of`` names for it on the card."""
     from tf2_tpu_torch.kernels import dispatch
 
+    kernel = "plain" if plain else None
     if isinstance(x_q, tuple):
-        return dispatch.qdense(node, params, *x_q, plain=plain)
-    if node.op == "qattention_core":
-        return dispatch.qattention_core(node, params, x_q, plain=plain)
+        return dispatch.qdense(node, params, *x_q, kernel=kernel)
     if node.op == "qconv2d":
-        return dispatch.qconv2d(_conv_node(node), params, x_q, plain=plain)
-    if node.op == "qblockchain":
-        return dispatch.qblockchain(node, params, x_q, plain=plain)
-    if node.op == "qlrn":
-        return dispatch.qlrn(node, params, x_q, plain=plain)
-    if node.op == "qlayernorm":
-        return dispatch.qlayernorm(node, params, x_q, plain=plain)
-    if node.op == "qgelu":
-        return dispatch.qgelu(node, params, x_q, plain=plain)
-    return dispatch.qdense(node, params, x_q, plain=plain)
+        return dispatch.qconv2d(_conv_node(node), params, x_q, kernel=kernel)
+    return getattr(dispatch, node.op)(node, params, x_q, kernel=kernel)
 
 
 def _which_kernel(node, params, x_q) -> str:
@@ -1404,7 +1399,8 @@ def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as
                out_shape=(1000,), graph=None):
     """A path through Engine.run: launch counts per forward must equal
     ``expected`` as the Engine's routes move it (``Engine.expected_launches``,
-    on the artifact's ``graph``); returns (launches per b64 forward, summary,
+    on the artifact's ``graph``) and one launch of each node's kernel in
+    ``Engine.kernels``; returns (launches per b64 forward, summary,
     outputs by batch). The outputs must be finite, (B, *out_shape). At batch 1 every
     node and the outputs must also equal the Engine on the CPU, whose plain
     path the CPU tests hold against tf2_tpu; with ``same_as`` the outputs
@@ -1421,6 +1417,10 @@ def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as
         if counts != want:
             raise RuntimeError(f"{label} b{b}: launches per forward {counts}, expected {want} "
                                f"(routes {eng.routes})")
+        planned = Counter(k for k in eng.kernels.values() if k not in ("plain", "library"))
+        if +Counter({k: v for k, v in counts.items() if k != "nms"}) != planned:
+            raise RuntimeError(f"{label} b{b}: launches per forward {counts}, the plan "
+                               f"{dict(planned)}")
         if any(kernels.prepared_per_call().values()):
             raise RuntimeError(f"{label} b{b}: weights prepared on a forward: "
                                f"{kernels.prepared_per_call()}")
@@ -1433,8 +1433,8 @@ def phase_main(label, engines, cpu_engine, images, plain_envs, expected, same_as
                                f"not finite (B, {out_shape})")
         if same_as is not None and not torch.equal(logits, same_as[b]):
             raise RuntimeError(f"{label} b{b}: logits differ from the default Engine's")
-        _, env = execute(eng.graph, intermediates=True, plain_nodes=eng.plain_nodes,
-                         library_nodes=eng.library_nodes)(eng.params, image=images[b])
+        _, env = execute(eng.graph, intermediates=True, kernels=eng.kernels)(
+            eng.params, image=images[b])
         differ = [n.name for n in eng.graph.nodes
                   if not torch.equal(env[n.name], plain_envs[b][n.name])]
         if differ or not torch.equal(logits, plain_envs[b][eng.graph.outputs[0]]):
@@ -1810,8 +1810,9 @@ def _dwconv_work(x_q, k: int) -> tuple[float, float]:
 def phase_convnext(stats, smi: str) -> tuple[dict, dict]:
     """Phase 23: full-width ConvNeXt-T W4-PoT (224x224, 1000 classes) from
     its synthetic artifact (saved and loaded back): Engines at batch 64 and
-    1 that leave no node plain (``engine.plain_nodes`` 0, 18 nodes on the
-    depthwise kernel); every conv and dense node against its plain version
+    1 that leave no node plain (``engine.plain_nodes`` 0; in
+    ``Engine.kernels`` 18 nodes on the depthwise kernel and 18 on the GELU
+    kernel); every conv and dense node against its plain version
     as in phase 4 (each depthwise conv on its real input, random inputs
     with relu flipped and +-127); both batches through phase_main
     (launches, every node equal to the plain path, at b1 to the CPU
@@ -1831,11 +1832,11 @@ def phase_convnext(stats, smi: str) -> tuple[dict, dict]:
     engines, cpu_engine = engines["default"], cpu_engines["default"]
     after = spans.counters()
     plain = after["engine.plain_nodes"] - before["engine.plain_nodes"]
-    dwconv = after["engine.dwconv_nodes"] - before["engine.dwconv_nodes"]
-    gelu = after["engine.qgelu_nodes"] - before["engine.qgelu_nodes"]
-    if plain or dwconv != 18 * len(engines) or gelu != 18 * len(engines):
-        raise RuntimeError(f"convnext_t: engine.plain_nodes +{plain}, engine.dwconv_nodes "
-                           f"+{dwconv}, engine.qgelu_nodes +{gelu} for {len(engines)} Engines")
+    on = {f"b{b}": {k: list(e.kernels.values()).count(k) for k in ("qdwconv", "qgelu", "plain")}
+          for b, e in engines.items()}
+    if plain or any(n != {"qdwconv": 18, "qgelu": 18, "plain": 0} for n in on.values()):
+        raise RuntimeError(f"convnext_t: engine.plain_nodes +{plain}, nodes on the depthwise "
+                           f"and GELU kernels and plain {on} for {len(engines)} Engines")
     rng = np.random.default_rng(23)
     images = {b: torch.as_tensor(rng.standard_normal((b, 224, 224, 3), dtype=np.float32)).cuda()
               for b in engines}
@@ -1844,8 +1845,8 @@ def phase_convnext(stats, smi: str) -> tuple[dict, dict]:
     launches, summary, _ = phase_main("convnext_t", engines, cpu_engine, images, envs,
                                       CONVNEXT_LAUNCHES, graph=art[0])
     summary["qgelu"] = gelu_summary
-    summary["counters"] = {"engine.plain_nodes": plain, "engine.dwconv_nodes": dwconv,
-                           "engine.qgelu_nodes": gelu}
+    summary["counters"] = {"engine.plain_nodes": plain}
+    summary["kernels"] = on
     eng = engines[64]
     dws = [n for n in eng.graph.nodes if n.op == "qconv2d" and n.attrs.get("groups", 1) > 1]
     rows, sums = [], {"kernel_device_ms": 0.0, "kernel_ms": 0.0, "plain_device_ms": 0.0,
@@ -1917,7 +1918,7 @@ def phase_coverage():
                                f"expected {sorted(want)}")
         x = torch.as_tensor(rng.standard_normal((2, image, image, 3), dtype=np.float32))
         kernels.reset_launch_counts()
-        logits, env = execute(eng.graph, intermediates=True, plain_nodes=eng.plain_nodes)(
+        logits, env = execute(eng.graph, intermediates=True, kernels=eng.kernels)(
             eng.params, image=x.cuda())
         torch.cuda.synchronize()
         counts = {k: v for k, v in kernels.launch_counts().items() if v}
@@ -2027,7 +2028,8 @@ def phase_stems(name, engines, cpu_engine, images, stats, timed=False):
         w_p, es, eb = (eng.params[p] for p in stem.params)
         w_q = w_p.contiguous()  # HWIO, as the artifact holds it
         kernels.reset_launch_counts()
-        y = dispatch.qconv2d(stem, eng.params, x)  # the Engine's stem node
+        # the Engine's stem node, on what its plan names
+        y = dispatch.qconv2d(stem, eng.params, x, kernel=eng.kernels[stem.name])
         counts = kernels.launch_counts()
         if counts != {**dict.fromkeys(counts, 0), "qstem": 1} or any(
                 kernels.prepared_per_call().values()):
@@ -2059,7 +2061,7 @@ def phase_stems(name, engines, cpu_engine, images, stats, timed=False):
         y2 = dispatch.qconv2d(packed, pparams, x)
         stats.check("qconv_s2x1", f"{name} b{b} wpack2 against the Engine's stem node", y2, y)
         stats.check("qconv_s2x1", f"{name} b{b} wpack2 node", y2,
-                    dispatch.qconv2d(packed, pparams, x, plain=True))
+                    dispatch.qconv2d(packed, pparams, x, kernel="plain"))
         xp = dispatch.pack_w_pairs(x_q, packed.attrs["pack_pad_w"])
         xr = _random_like(rng, xp)
         stats.check("qconv_s2x1", f"{name} b{b} random, relu flipped",
@@ -2076,7 +2078,7 @@ def phase_stems(name, engines, cpu_engine, images, stats, timed=False):
         # the routes side by side: the whole stem node, and its kernel alone
         # (the qstem node is one launch of the kernel)
         n = 20 if b == 64 else 100
-        r = {"qstem": (lambda: dispatch.qconv2d(stem, eng.params, x),) * 2,
+        r = {"qstem": (lambda: dispatch.qconv2d(stem, eng.params, x, kernel="qstem"),) * 2,
              "conv_s2": (lambda: qconv.qconv_s2(dispatch.quantize(x, s_in), w_q, es, eb,
                                                 **conv_kw),
                          lambda: qconv.qconv_s2(x_q, w_q, es, eb, **conv_kw)),
@@ -2121,7 +2123,7 @@ def _time_stem_kernels(stats, x, w_q, es, eb, y, stem, params, xp, wp, pk, y2):
     plan = qstem.plan(b, h, w, cin, cout, kh, qstem._norm_padding(padding))
     stats.add("qstem", {"node": stem.name, "x": list(x.shape), "kshape": [kh, kw, cin, cout],
                         "plan": plan.name},
-              cuda_ms(lambda: dispatch.qconv2d(stem, params, x), 20),
+              cuda_ms(lambda: dispatch.qconv2d(stem, params, x, kernel="qstem"), 20),
               cuda_ms(lambda: qstem.qstem_plain(x, wmat, es, eb, kh=kh, kw=kw, padding=padding,
                                                 relu=relu, scale=s_in), 3),
               cuda_ms(_bf16_conv(x, w_q, 2, kh // 2 if padding == "SAME" else 0), 20),
@@ -2443,7 +2445,7 @@ def phase_routing(name, graph, params, engines, images):
             eng = _forced_engine(g, params, route)
             if not eng.routes or set(eng.routes.values()) != {route}:
                 raise RuntimeError(f"{name} b{b} {route}: routes {eng.routes}")
-            out, env = execute(eng.graph, intermediates=True, library_nodes=eng.library_nodes)(
+            out, env = execute(eng.graph, intermediates=True, kernels=eng.kernels)(
                 eng.params, image=images[b])
             _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params,
                                                                          image=images[b])
@@ -2455,9 +2457,8 @@ def phase_routing(name, graph, params, engines, images):
             checked[route] = len(eng.routes)
             del eng
         if default.routes:  # the committed table's routed nodes
-            _, env = execute(default.graph, intermediates=True,
-                             library_nodes=default.library_nodes)(default.params,
-                                                                  image=images[b])
+            _, env = execute(default.graph, intermediates=True, kernels=default.kernels)(
+                default.params, image=images[b])
             _, plain = execute(default.graph, intermediates=True, plain=True)(
                 default.params, image=images[b])
             if any(not torch.equal(env[k], plain[k]) for k in default.routes):
@@ -2872,7 +2873,7 @@ def phase_serving(engines, donated, art, captured, smi: str) -> dict:
         raise RuntimeError(f"serving: native preprocessing off its numpy reference: "
                            f"{summary['preproc']}")
     # (b) the prefetch loader feeding the built b64 Engine
-    eager = execute(eng64.graph, plain_nodes=eng64.plain_nodes, library_nodes=eng64.library_nodes)
+    eager = execute(eng64.graph, kernels=eng64.kernels)
     loader = PrefetchLoader([raw[i:i + 64] for i in range(0, SERVE_IMAGES, 64)], depth=2,
                             out_size=image).start()
     batches, direct = [], []

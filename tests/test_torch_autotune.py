@@ -262,8 +262,7 @@ def test_routed_engine_equals_unrouted_and_reference(case, table, route):
         assert (eng.library_nodes == frozenset(eng.routes)) == (want == "library")
         pot4 = {n.name for n in eng.graph.nodes if n.attrs.get("wfmt") == "pot4"}
         assert not pot4 & set(eng.routes)
-    out, env = execute(eng.graph, intermediates=True,
-                       library_nodes=eng.library_nodes)(eng.params, image=x)
+    out, env = execute(eng.graph, intermediates=True, kernels=eng.kernels)(eng.params, image=x)
     int8 = [n.name for n in eng.graph.nodes if env[n.name].dtype == torch.int8]
     assert len(int8) == 24
     for name in int8:

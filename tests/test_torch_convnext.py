@@ -148,6 +148,6 @@ def test_engine_equals_benchmark_reference(tiny_art, batch):
 def test_plan_leaves_nothing_plain_at_published_shapes():
     art = synthetic_quantized("convnext_t", batch=1)
     eng = Engine(art.graph, art.params, device="cpu")
-    assert Engine.plan(eng.graph, eng.params, CARD) == frozenset()
+    assert "plain" not in Engine.plan(eng.graph, eng.params, CARD).values()
     dws = [n for n in eng.graph.nodes if n.attrs.get("groups", 1) > 1]
     assert len(dws) == 18 and {n.attrs["wfmt"] for n in dws} == {"int8"}

@@ -10,8 +10,8 @@ tf2_tpu on the CPU, and the Engine's coverage plan.
   Engine, node by node against the reference Engine.
 - ``Engine.plan``: the names it gives as a function of the graph and of
   each kernel's predicate, called with the card's limits (and tighter
-  ones) so that it runs here; ``execute(plain_nodes=)`` flags exactly
-  those nodes plain.
+  ones) so that it runs here; ``execute(kernels=)`` flags exactly the
+  nodes it names plain.
 """
 import jax
 import jax.numpy as jnp
@@ -34,7 +34,7 @@ from tf2_tpu_torch import kernels
 from tf2_tpu_torch.bench import coverage_cases
 from tf2_tpu_torch.graph import GraphBuilder, execute
 from tf2_tpu_torch.graph.execute import _OP_IMPLS
-from tf2_tpu_torch.kernels import qblocks, qconv
+from tf2_tpu_torch.kernels import dispatch, qblocks, qconv
 from tf2_tpu_torch.models import synthetic_quantized
 from tf2_tpu_torch.runtime import Engine
 from tf2_tpu_torch.runtime.engine import Limits
@@ -158,7 +158,7 @@ def test_conv_graph_engine_every_node_equals_reference(conv_case):
 
 def _plan(art, limits=CARD, **flags):
     eng = Engine(art.graph, art.params, device="cpu", **flags)
-    return Engine.plan(eng.graph, eng.params, limits)
+    return dispatch.nodes_on(Engine.plan(eng.graph, eng.params, limits), "plain")
 
 
 def test_plan_names_what_no_kernel_takes():
@@ -197,20 +197,22 @@ def test_plan_asks_the_card_limits():
 
 
 def test_execute_runs_plain_nodes_plain(monkeypatch):
-    """execute(plain_nodes=) hands plain=True to exactly the named nodes."""
+    """execute(kernels=) hands kernel="plain" to exactly the nodes it names
+    plain."""
     art = coverage_cases.conv_artifact()
-    impl, takes_plain = _OP_IMPLS["qconv2d"]
+    impl, takes_kernel = _OP_IMPLS["qconv2d"]
     seen = {}
 
-    def recording(node, params, x, plain=False):
-        seen[node.name] = plain
-        return impl(node, params, x, plain=plain)
+    def recording(node, params, x, kernel=None):
+        seen[node.name] = kernel == "plain"
+        return impl(node, params, x, kernel=kernel)
 
-    monkeypatch.setitem(_OP_IMPLS, "qconv2d", (recording, takes_plain))
+    monkeypatch.setitem(_OP_IMPLS, "qconv2d", (recording, takes_kernel))
     eng = Engine(art.graph, art.params, device="cpu")
     x = torch.as_tensor(np.random.default_rng(1).standard_normal((2, 32, 32, 3)),
                         dtype=torch.float32)
     want = eng.run(image=x)
-    got = execute(eng.graph, plain_nodes=coverage_cases.CONV_PLAIN)(eng.params, image=x)
+    got = execute(eng.graph, kernels=dict.fromkeys(coverage_cases.CONV_PLAIN, "plain"))(
+        eng.params, image=x)
     assert {k for k, v in seen.items() if v} == coverage_cases.CONV_PLAIN
     assert torch.equal(got, want)

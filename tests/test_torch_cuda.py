@@ -24,6 +24,21 @@ def cuda():
     return torch.device("cuda")
 
 
+def _launched(counts):
+    """The kernels a run launched: ``launch_counts()`` without its zeros."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def _planned(eng):
+    """The launches of one forward by the Engine's plan: each node the plan
+    puts on a kernel launches that kernel once."""
+    out = {}
+    for k in eng.kernels.values():
+        if k not in ("plain", "library"):
+            out[k] = out.get(k, 0) + 1
+    return out
+
+
 def _tensors(dev, *arrays):
     return [torch.as_tensor(a).to(dev) for a in arrays]
 
@@ -136,11 +151,11 @@ def test_engine_every_node_equals_plain(cuda):
     eng = Engine(art.graph, art.params, block_fusion=False)
     kernels.reset_launch_counts()
     logits = eng.run(image=x)
-    assert kernels.launch_counts() == {"qmatmul_pot4": 9, "qmatmul_int8": 1,
-                                       "qconv_s1": 1, "qconv_s2": 6, "qblockchain": 0,
-                                       "qlrn": 0, "qattention": 0,
-                                       "qconv_s2x1": 0, "qstem": 1, "nms": 0,
-                                       "qlayernorm": 0, "qdwconv": 0, "qgelu": 0}
+    assert _launched(kernels.launch_counts()) == _planned(eng)
+    assert _launched(kernels.launch_counts()) == _launched({
+        "qmatmul_pot4": 9, "qmatmul_int8": 1, "qconv_s1": 1, "qconv_s2": 6, "qblockchain": 0,
+        "qlrn": 0, "qattention": 0, "qconv_s2x1": 0, "qstem": 1, "nms": 0, "qlayernorm": 0,
+        "qdwconv": 0, "qgelu": 0})
     assert eng.stem_nodes == {"conv1_relu"}
     assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
@@ -227,11 +242,11 @@ def test_block_fused_engine_every_node_equals_plain(cuda):
     eng = Engine(art.graph, art.params, block_fusion=True)
     kernels.reset_launch_counts()
     logits = eng.run(image=x)
-    assert kernels.launch_counts() == {"qmatmul_pot4": 6, "qmatmul_int8": 1,
-                                       "qconv_s1": 0, "qconv_s2": 6, "qblockchain": 4,
-                                       "qlrn": 0, "qattention": 0,
-                                       "qconv_s2x1": 0, "qstem": 1, "nms": 0,
-                                       "qlayernorm": 0, "qdwconv": 0, "qgelu": 0}
+    assert _launched(kernels.launch_counts()) == _planned(eng)
+    assert _launched(kernels.launch_counts()) == _launched({
+        "qmatmul_pot4": 6, "qmatmul_int8": 1, "qconv_s1": 0, "qconv_s2": 6, "qblockchain": 4,
+        "qlrn": 0, "qattention": 0, "qconv_s2x1": 0, "qstem": 1, "nms": 0, "qlayernorm": 0,
+        "qdwconv": 0, "qgelu": 0})
     assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
@@ -584,12 +599,12 @@ def test_vit_engine_every_node_equals_plain(cuda, name, weight_bits):
     eng = Engine(art.graph, art.params)
     kernels.reset_launch_counts()
     logits = eng.run(image=x)
+    assert _launched(kernels.launch_counts()) == _planned(eng)
     pot4 = 0 if weight_bits == 8 else 4
-    assert kernels.launch_counts() == {"qmatmul_pot4": pot4, "qmatmul_int8": 10 - pot4,
-                                       "qconv_s1": 0, "qconv_s2": 0, "qblockchain": 0,
-                                       "qlrn": 0, "qattention": 2,
-                                       "qconv_s2x1": 0, "qstem": 0, "nms": 0,
-                                       "qlayernorm": 5, "qdwconv": 0, "qgelu": 2}
+    assert _launched(kernels.launch_counts()) == _launched({
+        "qmatmul_pot4": pot4, "qmatmul_int8": 10 - pot4, "qconv_s1": 0, "qconv_s2": 0,
+        "qblockchain": 0, "qlrn": 0, "qattention": 2, "qconv_s2x1": 0, "qstem": 0, "nms": 0,
+        "qlayernorm": 5, "qdwconv": 0, "qgelu": 2})
     assert set(kernels.prepared_per_call().values()) == {0}
     xt = torch.as_tensor(x).to(cuda)
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
@@ -627,8 +642,9 @@ def test_zoo_engines_every_node_equals_plain(cuda, name, image, launches):
         eng = Engine(art.graph, art.params, merge_1x1=merge)
         kernels.reset_launch_counts()
         logits[merge] = eng.run(image=x)
+        assert _launched(kernels.launch_counts()) == _planned(eng)
         if not merge:
-            assert kernels.launch_counts() == launches
+            assert _launched(kernels.launch_counts()) == _launched(launches)
         assert set(kernels.prepared_per_call().values()) == {0}
         _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
         _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
@@ -789,7 +805,8 @@ def test_stem_engines_every_node_equals_plain(cuda):
         eng = Engine(art.graph, art.params, block_fusion=False, **{flag: True})
         kernels.reset_launch_counts()
         logits = eng.run(image=x)
-        assert kernels.launch_counts() == {**base, **moved}, flag
+        assert _launched(kernels.launch_counts()) == _planned(eng)
+        assert _launched(kernels.launch_counts()) == _launched({**base, **moved}), flag
         _, env = execute(eng.graph, intermediates=True)(eng.params, image=xt)
         _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=xt)
         for n in eng.graph.nodes:
@@ -850,8 +867,9 @@ def test_engine_with_plain_nodes_equals_cpu(cuda, case):
     x = np.random.default_rng(0).standard_normal((2, image, image, 3)).astype(np.float32)
     kernels.reset_launch_counts()
     logits = eng.run(image=x)
+    assert _launched(kernels.launch_counts()) == _planned(eng)
     assert sum(kernels.launch_counts().values()) > 0
-    _, env = execute(eng.graph, intermediates=True, plain_nodes=eng.plain_nodes)(
+    _, env = execute(eng.graph, intermediates=True, kernels=eng.kernels)(
         eng.params, image=torch.as_tensor(x).to(cuda))
     _, cpu_env = execute(cpu.graph, intermediates=True)(cpu.params, image=torch.as_tensor(x))
     for n in eng.graph.nodes:
@@ -1124,12 +1142,13 @@ def test_routed_engine_bit_equal_to_kernel(cuda, tmp_path, route):
     x = _images(cuda, 1)[0]
     kernels.reset_launch_counts()
     logits = eng.run(image=x)
+    assert _launched(kernels.launch_counts()) == _planned(eng)
     counts = kernels.launch_counts()
     if route == "kernel_int8":
         assert counts["qmatmul_pot4"] == 0 and counts["qmatmul_int8"] > 1
     else:
         assert counts["qmatmul_pot4"] + counts["qmatmul_int8"] == 0
-    _, env = execute(eng.graph, intermediates=True, library_nodes=eng.library_nodes)(
+    _, env = execute(eng.graph, intermediates=True, kernels=eng.kernels)(
         eng.params, image=x)
     _, base_env = execute(base.graph, intermediates=True)(base.params, image=x)
     for n in eng.graph.nodes:
@@ -1142,11 +1161,11 @@ def test_routed_engine_bit_equal_to_kernel(cuda, tmp_path, route):
 @pytest.mark.parametrize("k,cout", [(9, 64), (7, 288)])
 def test_wide_stem_engine_on_card(cuda, k, cout):
     """A stem ``covers`` takes and the stem kernel's plan has no launch for
-    (``coverage_cases.stem_artifact``): outside ``Engine.stem_plan``, on the
-    quantize and the stride-2 conv kernel; every node equal to the plain
-    path and the logits to the Engine on the CPU, eager and built; and
-    ``fused_qstem`` on its weight takes the same two passes (``TWO_PASS``),
-    equal to ``qstem_plain``."""
+    (``coverage_cases.stem_artifact``): the Engine's plan keeps it off the
+    stem kernel, on the quantize and the stride-2 conv kernel; every node
+    equal to the plain path and the logits to the Engine on the CPU, eager
+    and built; and ``fused_qstem`` on its weight takes the same two passes
+    (``TWO_PASS``), equal to ``qstem_plain``."""
     from tf2_tpu_torch.bench import coverage_cases
     from tf2_tpu_torch.graph import execute
     from tf2_tpu_torch.runtime import Engine
@@ -1157,6 +1176,7 @@ def test_wide_stem_engine_on_card(cuda, k, cout):
     assert eng.stem_nodes == frozenset() and eng.plain_nodes == frozenset()
     kernels.reset_launch_counts()
     logits = eng.run(image=x)
+    assert _launched(kernels.launch_counts()) == _planned(eng)
     assert kernels.launch_counts()["qstem"] == 0 and kernels.launch_counts()["qconv_s2"] == 1
     _, env = execute(eng.graph, intermediates=True)(eng.params, image=x)
     _, plain = execute(eng.graph, intermediates=True, plain=True)(eng.params, image=x)

@@ -132,13 +132,13 @@ def test_debug_entry_points_default_to_the_card(squeeze):
 
 @pytest.fixture
 def plain_flags(monkeypatch):
-    """Each executor of an op with a kernel records the ``plain`` it gets."""
+    """Each executor of an op with a kernel records the ``kernel`` it gets."""
     seen = []
-    for op, (impl, takes_plain) in list(execute_mod._OP_IMPLS.items()):
-        if takes_plain:
-            def rec(node, params, *args, plain=False, _impl=impl):
-                seen.append((node.name, plain))
-                return _impl(node, params, *args, plain=plain)
+    for op, (impl, takes_kernel) in list(execute_mod._OP_IMPLS.items()):
+        if takes_kernel:
+            def rec(node, params, *args, kernel=None, _impl=impl):
+                seen.append((node.name, kernel))
+                return _impl(node, params, *args, kernel=kernel)
             monkeypatch.setitem(execute_mod._OP_IMPLS, op, (rec, True))
     return seen
 
@@ -154,9 +154,10 @@ def test_plain_mode_reaches_every_node(plain_flags):
     kernel_nodes = {n.name for n in eng.graph.nodes
                     if execute_mod._OP_IMPLS[n.op][1]}
     fc = frozenset({"fc"})
-    fwd = execute(eng.graph, library_nodes=fc)
+    fwd = execute(eng.graph, kernels=dict.fromkeys(fc, "library"))
     want = fwd(eng.params, image=torch.as_tensor(x))
-    assert {name for name, plain in plain_flags if not plain} == kernel_nodes - fc
+    assert {name for name, k in plain_flags if k is None} == kernel_nodes - fc
+    assert ("fc", "library") in plain_flags
     with plain_mode():
         plain_flags.clear()
         got = fwd(eng.params, image=torch.as_tensor(x))
@@ -165,7 +166,7 @@ def test_plain_mode_reaches_every_node(plain_flags):
         plain_flags.clear()
         logits = eng2.run(image=x)
         assert {name for name, _ in plain_flags} == kernel_nodes
-    assert all(plain for _, plain in plain_flags)
+    assert all(k == "plain" for _, k in plain_flags)
     assert torch.equal(got, want) and torch.equal(logits, eng.run(image=x))
 
 
@@ -183,4 +184,4 @@ def test_plain_mode_is_off_by_default_and_after_an_exception(plain_flags):
     eng = Engine(art.graph, art.params, device="cpu")
     plain_flags.clear()   # the load's shapes run plain, on meta tensors
     eng.run(image=np.zeros((1, 32, 32, 3), np.float32))
-    assert plain_flags and not any(plain for _, plain in plain_flags)
+    assert plain_flags and not any(k == "plain" for _, k in plain_flags)

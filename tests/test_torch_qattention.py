@@ -126,10 +126,10 @@ def test_executor_and_meta_shapes():
     attrs = {"heads": 4, "dim": 64, "s_in": 0.02, "s_out": 0.05}
     node = Node("attn", "qattention_core", ("qkv",), (), attrs)
     qkv = np.random.default_rng(3).integers(-127, 128, (2, 17, 192), dtype=np.int8)
-    impl, takes_plain = _OP_IMPLS["qattention_core"]
-    assert takes_plain
-    got = impl(node, {}, torch.as_tensor(qkv), plain=True)
+    impl, takes_kernel = _OP_IMPLS["qattention_core"]
+    assert takes_kernel
+    got = impl(node, {}, torch.as_tensor(qkv), kernel="plain")
     np.testing.assert_array_equal(got.numpy(), _reference(qkv, **attrs))
     meta = impl(node, {}, torch.empty((5, 197, 192), dtype=torch.int8, device="meta"),
-                plain=True)
+                kernel="plain")
     assert meta.shape == (5, 197, 64) and meta.dtype == torch.int8

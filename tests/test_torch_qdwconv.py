@@ -279,50 +279,61 @@ def test_kernel_schedule_replay_equals_plain(n, h, w, c, k, relu):
 # ---- the dispatch and the Engine's coverage plan ----
 
 def test_dispatch_routes_depthwise_convs(monkeypatch):
-    """dispatch.qconv2d hands an int8 depthwise node to the module (the
-    kernel on the card, its plain version here) and a pot4 one, or one
-    covers refuses, to the conv path; no launch on the CPU."""
+    """dispatch.qconv2d hands an int8 depthwise node the plan puts on
+    ``qdwconv`` to the module's kernel (its plain version here), and one
+    the plan runs plain, or one with no plan off the card, to the conv
+    path's plain version; no launch on the CPU. With no plan on the card
+    it asks ``kernel_of``: the kernel for this node, and a raise for one
+    ``covers`` refuses (the card stood in for)."""
     calls = []
-    real = qdwconv.fused_qdwconv
+    real = qdwconv.qdwconv
 
     def spy(*a, **kw):
-        calls.append(kw["plain"])
+        calls.append("qdwconv")
         return real(*a, **kw)
 
-    monkeypatch.setattr(qdwconv, "fused_qdwconv", spy)
+    monkeypatch.setattr(qdwconv, "qdwconv", spy)
     rng = np.random.default_rng(3)
     x, wq, es, eb = _case(1, 9, 9, 16, 7, rng)
     params = dict(zip(("w", "es", "eb"), _torch(wq, es, eb)))
     attrs = {"relu": True, "wfmt": "int8", "strides": [1, 1], "padding": "SAME",
              "groups": 16, "kshape": [7, 7, 1, 16], "in_scale": 0.02, "out_scale": 0.02}
+    node = Node("dw", "qconv2d", ("x",), ("w", "es", "eb"), attrs)
+    valid = Node("dw", "qconv2d", ("x",), ("w", "es", "eb"), dict(attrs, padding="VALID"))
     before = kernels.launch_counts()["qdwconv"]
-    for plain in (False, True):
-        got = dispatch.qconv2d(Node("dw", "qconv2d", ("x",), ("w", "es", "eb"), attrs), params,
-                               torch.as_tensor(x), plain=plain)
+    for kernel in ("qdwconv", "plain", None):
+        got = dispatch.qconv2d(node, params, torch.as_tensor(x), kernel=kernel)
         np.testing.assert_array_equal(got.numpy(), _model(x, wq, es, eb, True))
-    assert calls == [False, True]
-    dispatch.qconv2d(Node("dw", "qconv2d", ("x",), ("w", "es", "eb"), dict(attrs, padding="VALID")),
-                     params, torch.as_tensor(x))
-    assert calls == [False, True]
+    assert calls == ["qdwconv"]
+    dispatch.qconv2d(valid, params, torch.as_tensor(x))
+    assert calls == ["qdwconv"]
+    monkeypatch.setattr(dispatch, "_on_card", lambda t: True)
+    monkeypatch.setattr(dispatch.Limits, "of_card", staticmethod(lambda: CARD))
+    got = dispatch.qconv2d(node, params, torch.as_tensor(x))
+    np.testing.assert_array_equal(got.numpy(), _model(x, wq, es, eb, True))
+    assert calls == ["qdwconv", "qdwconv"]
+    with pytest.raises(NotImplementedError, match="no kernel takes"):
+        dispatch.qconv2d(valid, params, torch.as_tensor(x))
     assert kernels.launch_counts()["qdwconv"] == before
 
 
 def test_plan_gives_depthwise_convs_the_kernel():
-    """Engine.plan leaves no depthwise conv of a small ConvNeXt plain and
-    counts each in engine.dwconv_nodes; with predecode=False its weights
-    stay pot4 and every one of them is planned plain."""
+    """Engine.plan gives every depthwise conv of a small ConvNeXt the
+    kernel and leaves none plain; with predecode=False its weights stay
+    pot4 and every one of them is planned plain (counted in
+    engine.plain_nodes)."""
     art = synthetic_quantized("convnext_t", batch=1, image=32, classes=10, depths=(1, 1, 2, 1),
                               dims=(16, 32, 64, 128))
     eng = Engine(art.graph, art.params, device="cpu")
     dws = {n.name for n in eng.graph.nodes if n.attrs.get("groups", 1) > 1}
     assert len(dws) == 5 and all(eng.graph.node_map()[d].attrs["wfmt"] == "int8" for d in dws)
     before = spans.counters()
-    assert Engine.plan(eng.graph, eng.params, CARD) == frozenset()
+    plan = Engine.plan(eng.graph, eng.params, CARD)
     after = spans.counters()
-    assert after["engine.dwconv_nodes"] - before["engine.dwconv_nodes"] == 5
+    assert dispatch.nodes_on(plan, "qdwconv") == dws and "plain" not in plan.values()
     assert after["engine.plain_nodes"] == before["engine.plain_nodes"]
     packed = Engine(art.graph, art.params, device="cpu", predecode=False)
-    assert Engine.plan(packed.graph, packed.params, CARD) == dws
+    assert dispatch.nodes_on(Engine.plan(packed.graph, packed.params, CARD), "plain") == dws
     assert spans.counters()["engine.plain_nodes"] - after["engine.plain_nodes"] == 5
 
 
@@ -332,7 +343,8 @@ def test_plan_takes_the_coverage_depthwise_conv():
     conv = coverage_cases.conv_artifact()
     eng = Engine(conv.graph, conv.params, device="cpu")
     plan = Engine.plan(eng.graph, eng.params, CARD)
-    assert plan == coverage_cases.CONV_PLAIN and "dw3x3" not in plan
+    assert dispatch.nodes_on(plan, "plain") == coverage_cases.CONV_PLAIN
+    assert plan["dw3x3"] == "qdwconv"
 
 
 def test_imports_without_cuda():

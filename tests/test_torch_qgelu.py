@@ -4,8 +4,7 @@ plain version.
 On the CPU: ``qgelu_plain`` and the wrapper against the table indexed by
 code + 128 for every code, ``dispatch.qgelu`` through the wrapper,
 ``execute(plain=True)`` through the plain version, and the Engine's
-coverage plan counting the GELUs it gives the kernel
-(``engine.qgelu_nodes``). On the card (the ``cuda`` marker; skipped
+plan giving the kernel every GELU (``Engine.plan``). On the card (the ``cuda`` marker; skipped
 without one, decided in the fixture): the kernel bit-equal to the plain
 version on the card and on the CPU for every code, at ragged sizes, from
 unaligned views, at a ConvNeXt-T and a ViT-B/16 node's b64 shape and inside
@@ -84,8 +83,8 @@ def test_plain_is_the_table_for_every_code(s_in, s_out):
 @pytest.mark.parametrize("plain", [False, True])
 def test_dispatch_goes_through_the_wrapper(plain, monkeypatch):
     """dispatch.qgelu hands the node's table to the wrapper (which on a CPU
-    tensor takes the plain version) or, with plain, to the plain version
-    alone; the result is the table's."""
+    tensor takes the plain version) or, with ``kernel="plain"``, to the plain
+    version alone; the result is the table's."""
     calls = []
     for name in ("qgelu", "qgelu_plain"):
         def spy(x_q, table, _fn=getattr(qgelu, name), _name=name):
@@ -94,7 +93,7 @@ def test_dispatch_goes_through_the_wrapper(plain, monkeypatch):
 
         monkeypatch.setattr(qgelu, name, spy)
     x = torch.as_tensor(CODES).reshape(4, 64)
-    got = dispatch.qgelu(_node(0.05, 0.04), {}, x, plain=plain)
+    got = dispatch.qgelu(_node(0.05, 0.04), {}, x, kernel="plain" if plain else None)
     assert calls == (["qgelu_plain"] if plain else ["qgelu", "qgelu_plain"])
     np.testing.assert_array_equal(got.numpy(), _table(0.05, 0.04).numpy()[CODES.astype(int) + 128]
                                   .reshape(4, 64))
@@ -136,17 +135,14 @@ def test_execute_plain_reaches_the_plain_version(monkeypatch):
     ("resnet50", {}, 0),
 ])
 def test_plan_counts_the_gelus(model, kwargs, want):
-    """Engine.plan gives every int8 GELU the kernel and counts it in
-    engine.qgelu_nodes: ConvNeXt-T's 18 (depths 3-3-9-3), ViT-B/16's 12
-    (depth 12), ResNet-50's none; it leaves none of them plain."""
+    """Engine.plan gives every int8 GELU the kernel: ConvNeXt-T's 18
+    (depths 3-3-9-3), ViT-B/16's 12 (depth 12), ResNet-50's none; it leaves
+    none of them plain."""
     art = synthetic_quantized(model, batch=1, image=32, classes=10, **kwargs)
     gelus = {n.name for n in art.graph.nodes if n.op == "qgelu"}
     assert len(gelus) == want
-    before = spans.counters()
-    plain = Engine.plan(art.graph, art.params, CARD)
-    after = spans.counters()
-    assert after["engine.qgelu_nodes"] - before["engine.qgelu_nodes"] == want
-    assert not plain & gelus
+    plan = Engine.plan(art.graph, art.params, CARD)
+    assert dispatch.nodes_on(plan, "qgelu") == gelus
 
 
 def test_imports_without_cuda():

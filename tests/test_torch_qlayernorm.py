@@ -114,7 +114,7 @@ def test_dispatch_takes_the_module(plain):
                        ({"s_in": 0.05, "s_out": 0.04}, 1e-6)):
         got = dispatch.qlayernorm(Node("ln", "qlayernorm", ("x",), ("g", "b"), attrs),
                                   {"g": torch.as_tensor(gamma), "b": torch.as_tensor(beta)},
-                                  torch.as_tensor(x), plain=plain)
+                                  torch.as_tensor(x), kernel="plain" if plain else None)
         np.testing.assert_array_equal(got.numpy(), _model(x, gamma, beta, eps, 0.05, 0.04))
     assert kernels.launch_counts()["qlayernorm"] == before
 
@@ -143,12 +143,12 @@ def test_plan_leaves_uncovered_widths_plain(dim):
     lns = {n.name for n in eng.graph.nodes if n.op == "qlayernorm"}
     assert len(lns) == 3
     plan = Engine.plan(eng.graph, eng.params, Limits(8000, 200_000))
-    assert plan & lns == (set() if qlayernorm.covers(dim) else lns)
+    assert {plan[n] for n in lns} == {"qlayernorm" if qlayernorm.covers(dim) else "plain"}
 
 
 def test_execute_plain_reaches_the_plain_version(monkeypatch):
-    """execute(plain=True) and plain_nodes= call qlayernorm_plain for every
-    layer norm and never the kernel's wrapper; the default path calls the
+    """execute(plain=True) and a plan naming them plain call qlayernorm_plain
+    for every layer norm and never the kernel's wrapper; the default path calls the
     wrapper (which on the CPU takes the plain version)."""
     art = synthetic_quantized("vit_b16", batch=1, image=32, classes=10, dim=64, depth=1,
                               heads=2, weight_bits=8)
@@ -171,7 +171,8 @@ def test_execute_plain_reaches_the_plain_version(monkeypatch):
                         dtype=torch.float32)
     want = execute(eng.graph, plain=True)(eng.params, image=x)
     assert calls == {"plain": len(lns), "kernel": 0}
-    assert torch.equal(execute(eng.graph, plain_nodes=lns)(eng.params, image=x), want)
+    assert torch.equal(execute(eng.graph, kernels=dict.fromkeys(lns, "plain"))(
+        eng.params, image=x), want)
     assert calls == {"plain": 2 * len(lns), "kernel": 0}
     assert torch.equal(eng.run(image=x), want)
     assert calls["kernel"] == len(lns)

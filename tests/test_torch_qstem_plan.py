@@ -8,7 +8,7 @@ output row is computed once, every input row is converted from its own
 staging slot before the slot is reused, and every step reads the input
 rows it needs from the ring; shared memory fits two blocks an SM. The
 prepared weight is ``fold_weight``'s rows reordered into (dy, dx, c), each
-dy padded to 32 with zeros, seen as the HWIO values. ``Engine.stem_plan``
+dy padded to 32 with zeros, seen as the HWIO values. ``Engine.plan``
 routes the fused stem of each zoo CNN at reduced depth under the card's
 limits, and no stem ``covers`` refuses; the routed stem's weight on the CPU
 gives every node the values of the unrouted Engine. Tolerance 0. The
@@ -179,10 +179,11 @@ def test_prepared_weight_is_fold_weight_reordered(k, cin, cout):
     ("resnet50", 64, dict(depths=(1, 1, 1, 1))), ("googlenet", 64, {}),
     ("squeezenet_v1_1", 64, {}), ("ssd", 128, {})])
 def test_engine_routes_each_zoo_stem(name, image, kw):
-    """Under the card's limits ``Engine.stem_plan`` names the model's fused
-    stem, and only it; the CPU Engine routes none; the stem's weight in the
-    kernel's layout leaves every node's value as it was (on the CPU the
-    routed node takes ``fused_qstem``'s plain path)."""
+    """Under the card's limits ``Engine.plan`` puts the model's fused stem,
+    and only it, on the stem kernel; the CPU Engine routes none; the stem's
+    weight in the kernel's layout leaves every node's value as it was (on
+    the CPU the node the plan routes takes ``fused_qstem``'s plain
+    path)."""
     from tf2_tpu_torch.models import synthetic_quantized
 
     art = synthetic_quantized(name, seed=0, batch=2, image=image,
@@ -190,13 +191,14 @@ def test_engine_routes_each_zoo_stem(name, image, kw):
     eng = Engine(art.graph, art.params, device="cpu")
     stems = [n.name for n in eng.graph.nodes if n.op == "qconv2d" and "s_in" in n.attrs]
     assert len(stems) == 1 and eng.stem_nodes == frozenset()
-    assert Engine.stem_plan(eng.graph, eng.params, CARD) == set(stems)
+    plan = Engine.plan(eng.graph, eng.params, CARD)
+    assert dispatch.nodes_on(plan, "qstem") == set(stems)
     routed = dispatch.prepare_weights(eng.graph, eng.params, frozenset(stems))
     w = routed[eng.graph.node_map()[stems[0]].params[0]]
     assert qstem.prepared_ld(w) is not None
     x = torch.as_tensor(np.random.default_rng(0).standard_normal((2, image, image, 3),
                                                                  dtype=np.float32))
-    _, got = execute(eng.graph, intermediates=True)(routed, image=x)
+    _, got = execute(eng.graph, intermediates=True, kernels=plan)(routed, image=x)
     _, want = execute(eng.graph, intermediates=True)(eng.params, image=x)
     for n in eng.graph.nodes:
         assert torch.equal(got[n.name], want[n.name]), n.name
@@ -230,7 +232,9 @@ def test_engine_stem_plan_follows_covers(cin, k, strides, routed):
     eng = Engine(art.graph, art.params, device="cpu")
     stem = next(n for n in eng.graph.nodes if n.op == "qconv2d")
     assert ("s_in" in stem.attrs) == (cin <= 4)  # else an eager quantize node before it
-    assert Engine.stem_plan(eng.graph, eng.params, CARD) == ({stem.name} if routed else set())
+    def stems(limits):
+        return dispatch.nodes_on(Engine.plan(eng.graph, eng.params, limits), "qstem")
+
+    assert stems(CARD) == ({stem.name} if routed else set())
     if routed:  # a card whose blocks hold too little shared memory routes none
-        assert Engine.stem_plan(eng.graph, eng.params, Limits(CARD.qlrn_channels, 512)) \
-            == frozenset()
+        assert stems(Limits(CARD.qlrn_channels, 512)) == frozenset()

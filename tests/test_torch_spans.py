@@ -19,8 +19,7 @@ from tf2_tpu_torch.transform import load_artifact, save_artifact
 
 INIT_STEPS = ["engine.routes", "engine.decode", "engine.pass.fuse_stem_quantize",
               "engine.pass.fuse_lrn_quantize", "engine.pass.hoist_input_quantize",
-              "engine.pass.fuse_bottleneck_chains", "engine.plan", "engine.stem_plan",
-              "engine.weights"]
+              "engine.pass.fuse_bottleneck_chains", "engine.plan", "engine.weights"]
 CALL = ["engine.call", "engine.copy_in", "engine.replay"]
 
 

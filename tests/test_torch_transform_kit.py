@@ -346,9 +346,9 @@ def test_engine_on_cli_artifact_equals_reference_engine(cli_run):
     for n in eng.graph.nodes:
         if n.name not in env or env[n.name].dtype != np.int8:
             continue
-        impl, takes_plain = _OP_IMPLS[n.op]
+        impl, takes_kernel = _OP_IMPLS[n.op]
         args = [torch.tensor(env[i]) for i in n.inputs]
-        got = (impl(n, eng.params, *args, plain=False) if takes_plain
+        got = (impl(n, eng.params, *args, kernel=None) if takes_kernel
                else impl(n, eng.params, *args)).numpy()
         np.testing.assert_array_equal(got, env[n.name], err_msg=n.name)
         checked += 1

@@ -263,9 +263,9 @@ def test_every_int8_node_equals_reference(vit, resid):
     for n in eng.graph.nodes:
         if env[n.name].dtype != np.int8:
             continue
-        impl, takes_plain = _OP_IMPLS[n.op]
+        impl, takes_kernel = _OP_IMPLS[n.op]
         args = [torch.tensor(env[i]) for i in n.inputs]
-        got = (impl(n, eng.params, *args, plain=False) if takes_plain
+        got = (impl(n, eng.params, *args, kernel=None) if takes_kernel
                else impl(n, eng.params, *args)).numpy()
         if n.op == "qlayernorm":
             _within_one(got, env[n.name], n.name)
@@ -382,9 +382,9 @@ def test_long_sequence_vit_every_int8_node_equals_reference():
     for n in eng.graph.nodes:
         if env[n.name].dtype != np.int8:
             continue
-        impl, takes_plain = _OP_IMPLS[n.op]
+        impl, takes_kernel = _OP_IMPLS[n.op]
         args = [torch.tensor(env[i]) for i in n.inputs]
-        got = (impl(n, eng.params, *args, plain=False) if takes_plain
+        got = (impl(n, eng.params, *args, kernel=None) if takes_kernel
                else impl(n, eng.params, *args)).numpy()
         if n.op in ("qlayernorm", "quantize"):
             _within_one(got, env[n.name], n.name)

@@ -165,9 +165,9 @@ def test_every_int8_node_equals_reference(zoo, merge, phase):
     for n in eng.graph.nodes:
         if env[n.name].dtype != np.int8:
             continue
-        impl, takes_plain = _OP_IMPLS[n.op]
+        impl, takes_kernel = _OP_IMPLS[n.op]
         args = [torch.tensor(env[i]) for i in n.inputs]
-        got = (impl(n, eng.params, *args, plain=False) if takes_plain
+        got = (impl(n, eng.params, *args, kernel=None) if takes_kernel
                else impl(n, eng.params, *args)).numpy()
         diff = np.abs(got.astype(np.int32) - env[n.name].astype(np.int32))
         if n.op == "qlrn":

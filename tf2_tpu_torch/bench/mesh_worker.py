@@ -65,8 +65,8 @@ def _meshed(graph, params, x, spec, cfg, out_dir, rank, whole_cache):
               "launches": counts, "local_shape": list(out.shape)}
     saved = {"logits": logits.cpu().numpy()}
     if cfg.get("save_env"):
-        _, env = execute(eng.graph, intermediates=True, plain_nodes=eng.plain_nodes,
-                         library_nodes=eng.library_nodes, gather_nodes=eng.tp_nodes,
+        _, env = execute(eng.graph, intermediates=True, kernels=eng.kernels,
+                         gather_nodes=eng.tp_nodes,
                          gather=lambda t: all_gather_last(mesh, t))(
             eng.params, image=torch.as_tensor(local).to(eng.device))
         for node in eng.graph.nodes:

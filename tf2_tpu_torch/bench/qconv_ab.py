@@ -149,7 +149,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         parent = build_parent(args.parent, Path(d))
         for (x_shape, kshape, strides, pads, wfmt), per in calls.items():
-            kernel = qconv._KERNELS[strides]
+            kernel = qconv.KERNELS[strides]
             pfn = getattr(parent, f"tf2_{kernel}")
             pfn.argtypes, pfn.restype = qconv._SIG[:19], ctypes.c_int
             x, w, es, eb = operands(rng, x_shape, kshape, wfmt)

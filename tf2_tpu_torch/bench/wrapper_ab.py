@@ -74,8 +74,8 @@ def pot4_call(package: str):
 
 def stem_calls():
     """(the two passes, the stem kernel) on the batch-1 ResNet-50 Engine's
-    stem node: the node on the HWIO weight takes quantize + ``qconv_s2``,
-    on the weight the Engine prepared, the stem kernel."""
+    stem node: the node on ``qconv_s2`` and the HWIO weight takes quantize
+    + ``qconv_s2``, on the weight the Engine prepared, the stem kernel."""
     from tf2_tpu_torch.kernels import dispatch
     from tf2_tpu_torch.models import synthetic_quantized
     from tf2_tpu_torch.runtime import Engine
@@ -87,7 +87,8 @@ def stem_calls():
     hwio[node.params[0]] = eng.params[node.params[0]].contiguous()
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (1, 224, 224, 3), dtype=np.float32)).cuda()
-    return (lambda: dispatch.qconv2d(node, hwio, x), lambda: dispatch.qconv2d(node, eng.params, x),
+    return (lambda: dispatch.qconv2d(node, hwio, x, kernel="qconv_s2"),
+            lambda: dispatch.qconv2d(node, eng.params, x, kernel="qstem"),
             eng)
 
 

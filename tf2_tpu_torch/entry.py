@@ -32,7 +32,7 @@ def entry(device: str = "cuda", **overrides):
 
     art = synthetic_quantized("resnet50", seed=0, **{**CONFIG, **overrides})
     eng = Engine(art.graph, art.params, device=device)
-    fn = execute(eng.graph, plain_nodes=eng.plain_nodes, library_nodes=eng.library_nodes)
+    fn = execute(eng.graph, kernels=eng.kernels)
     image = torch.zeros(art.graph.inputs["image"].shape, dtype=torch.float32,
                         device=eng.device)
 

@@ -1,14 +1,12 @@
 """IR executor: walks a Graph in order and runs each node's implementation
 on torch tensors, eagerly, on the device the tensors live on.
 
-Ops with a kernel (``register_op(..., kernel=True)``) take a ``plain`` flag:
-``execute(graph, plain=True)`` runs their plain PyTorch versions instead of
-the kernels, on any device, as the reference a kernel run is held against;
-``execute(graph, plain_nodes=names)`` runs only the named nodes so (the
-Engine's coverage plan: the nodes no kernel takes), and
-``execute(graph, library_nodes=names)`` runs the named dense and 1x1 conv
-nodes on the ``library`` route (``torch._int_mm``; the Engine's routes,
-``kernels/dispatch.py``).
+Ops with a kernel (``register_op(..., kernel=True)``) take the name of what
+runs them, ``kernel``: ``execute(graph, plain=True)`` runs their plain
+PyTorch versions, on any device, as the reference a kernel run is held
+against; ``execute(graph, kernels=plan)`` runs each node the plan names
+(``Engine.kernels``, by ``dispatch.kernel_of``) on a kernel, its plain
+version or its ``library`` route (``torch._int_mm``).
 ``execute(graph, gather_nodes=names, gather=fn)`` passes each named node's
 output through ``fn`` before any later node reads it (a tp-meshed Engine's
 all-gather of the output channels, ``parallel/mesh.py``).
@@ -27,9 +25,8 @@ from .ir import Graph, Node
 
 Params = Mapping[str, torch.Tensor]
 
-# op name -> (fn(node, params, *inputs[, plain=]), takes_plain)
+# op name -> (fn(node, params, *inputs[, kernel=]), takes_kernel)
 _OP_IMPLS: dict[str, tuple[Callable, bool]] = {}
-_LIBRARY = {"qconv2d": dispatch.qconv2d_library, "qdense": dispatch.qdense_library}
 
 
 def register_op(name: str, kernel: bool = False):
@@ -61,41 +58,36 @@ def set_plain_mode(flag: bool) -> bool:
     return prev
 
 
-def run_node(node: Node, params: Params, *args, plain: bool = False, library: bool = False):
-    """One node's output on its inputs: its ``library`` route
-    (``library``), its plain version (``plain``, for an op with a kernel),
-    or its executor. Under ``set_plain_mode(True)`` every node takes its
-    plain version, whatever it was asked."""
+def run_node(node: Node, params: Params, *args, kernel: str | None = None):
+    """One node's output on its inputs, on ``kernel`` (``dispatch.kernel_of``'s
+    answer; None: on the card the executor asks it, elsewhere the node is
+    plain). Under ``set_plain_mode(True)`` every
+    node takes its plain version, whatever it was asked."""
     if node.op not in _OP_IMPLS:
         raise NotImplementedError(f"op {node.op!r} has no executor")
-    impl, takes_plain = _OP_IMPLS[node.op]
-    if _PLAIN_MODE:
-        plain, library = True, False
-    if library:
-        return _LIBRARY[node.op](node, params, *args)
-    if takes_plain:
-        return impl(node, params, *args, plain=plain)
-    return impl(node, params, *args)
+    impl, takes_kernel = _OP_IMPLS[node.op]
+    if not takes_kernel:
+        return impl(node, params, *args)
+    return impl(node, params, *args, kernel="plain" if _PLAIN_MODE else kernel)
 
 
 def execute(graph: Graph, intermediates: bool = False, plain: bool = False,
-            plain_nodes: frozenset[str] = frozenset(),
-            library_nodes: frozenset[str] = frozenset(), wide: bool = False,
+            kernels: Mapping[str, str] | None = None, wide: bool = False,
             gather_nodes: frozenset[str] = frozenset(), gather: Callable | None = None):
     """Return fn(params, **inputs) -> outputs (a tuple if several). With
-    ``intermediates=True`` it returns (outputs, dict of every value). The
-    nodes named in ``plain_nodes`` run their plain versions, as every node
-    does with ``plain=True``; those in ``library_nodes`` (unless plain)
-    their ``library`` route. With ``wide=True`` the ``WIDE_OPS`` nodes take
-    their f32 inputs and params in float64 and round their output once to
-    f32; every other f32 op is already a sequence of correctly rounded
-    steps (or an exact f64 sum). The f32 values then agree on the card and
-    the CPU, apart from an output whose f64 value lies within its own error
-    of an f32 rounding boundary (about K * 2^-29 of a K-term sum's
-    outputs): the Transform Kit's forwards (``transform/calibrate.py``).
+    ``intermediates=True`` it returns (outputs, dict of every value). Each
+    node runs on what ``kernels`` names for it (every node plain with
+    ``plain=True``). With ``wide=True`` the ``WIDE_OPS`` nodes take their f32
+    inputs and params in float64 and round their output once to f32; every
+    other f32 op is already a sequence of correctly rounded steps (or an
+    exact f64 sum). The f32 values then agree on the card and the CPU, apart
+    from an output whose f64 value lies within its own error of an f32
+    rounding boundary (about K * 2^-29 of a K-term sum's outputs): the
+    Transform Kit's forwards (``transform/calibrate.py``).
     The outputs of ``gather_nodes`` pass through ``gather``."""
     if gather_nodes and gather is None:
         raise ValueError("gather_nodes given without a gather")
+    kernels = kernels or {}
 
     def fn(params: Params, **inputs):
         env: dict[str, torch.Tensor] = dict(inputs)
@@ -115,8 +107,8 @@ def execute(graph: Graph, intermediates: bool = False, plain: bool = False,
                     out = run_node(node, wide_params, *args)
                     out = out.to(torch.float32) if out.dtype == torch.float64 else out
                 else:
-                    out = run_node(node, params, *args, plain=plain or node.name in plain_nodes,
-                                   library=node.name in library_nodes and not plain)
+                    out = run_node(node, params, *args,
+                                   kernel="plain" if plain else kernels.get(node.name))
                 env[node.name] = gather(out) if node.name in gather_nodes else out
         outs = tuple(env[o] for o in graph.outputs)
         result = outs[0] if len(outs) == 1 else outs

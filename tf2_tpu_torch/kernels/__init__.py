@@ -1,21 +1,31 @@
 """Hand-written CUDA kernels for Hopper (sources in ``csrc/``), their ctypes
 wrappers and their plain PyTorch versions.
 
-Each wrapper counts its launches; ``launch_counts`` reads the counts and
-``reset_launch_counts`` sets them to 0, so a run can show which kernels
-carried it. The GEMMs, the chain kernel and the stem kernel also count
-the weights their wrappers had to prepare (into the kernel's layout) on a
-call (``prepared_per_call``; the Engine prepares them at load, so its
-forwards count none); the reset clears those too.
+``MODULES`` lists the kernel modules, one line each; each declares its
+source under ``csrc/`` (``SOURCE``: what ``build.build_all`` compiles) and
+counts its launches (``LAUNCHES``: ``launch_counts``), and the GEMMs, the
+chain kernel and the stem kernel the weights their wrappers prepared on a call
+(``PREPARED_PER_CALL``: ``prepared_per_call``; none on an Engine's
+forward). ``reset_launch_counts`` sets both to 0. Which kernel runs a node
+is decided in ``dispatch.kernel_of``.
 """
-from . import (detection, qattention, qblocks, qconv, qdwconv, qgelu, qlayernorm, qlrn,
+from . import (build, detection, qattention, qblocks, qconv, qdwconv, qgelu, qlayernorm, qlrn,
                qstem, shift_matmul)
 
-_COUNTS = (shift_matmul.LAUNCHES, qconv.LAUNCHES, qblocks.LAUNCHES, qlrn.LAUNCHES,
-           qattention.LAUNCHES, qstem.LAUNCHES, detection.LAUNCHES, qlayernorm.LAUNCHES,
-           qdwconv.LAUNCHES, qgelu.LAUNCHES)
-_PREPARED = (shift_matmul.PREPARED_PER_CALL, qblocks.PREPARED_PER_CALL,
-             qstem.PREPARED_PER_CALL)
+MODULES = (
+    shift_matmul,
+    qconv,
+    qblocks,
+    qlrn,
+    qattention,
+    qstem,
+    detection,
+    qlayernorm,
+    qdwconv,
+    qgelu,
+)
+_COUNTS = tuple(m.LAUNCHES for m in MODULES)
+_PREPARED = tuple(m.PREPARED_PER_CALL for m in MODULES if hasattr(m, "PREPARED_PER_CALL"))
 
 
 def launch_counts() -> dict[str, int]:

@@ -26,12 +26,19 @@ CSRC = Path(__file__).with_name("csrc")
 CACHE_ENV = "TF2TPU_TORCH_KERNEL_CACHE"
 DEFAULT_BUILD_DIR = Path(__file__).with_name("build")
 BUILD_DIR = Path(os.environ.get(CACHE_ENV) or DEFAULT_BUILD_DIR)
-SOURCES = ("shift_matmul.cu", "qconv.cu", "qblocks.cu", "qlrn.cu", "qattention.cu",
-           "qstem.cu", "nms.cu", "qlayernorm.cu", "qdwconv.cu", "qgelu.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def __getattr__(name: str):
+    """``SOURCES``: the source of each of ``kernels.MODULES`` (its
+    ``SOURCE``), read from that list when asked."""
+    if name == "SOURCES":
+        from . import MODULES
+        return tuple(m.SOURCE for m in MODULES)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _nvcc() -> str:
@@ -59,7 +66,8 @@ def build_all() -> dict[str, Path]:
     ``kernels.build_all``; each nvcc job counts in ``kernels.compiled``
     (``runtime/spans.py``)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {s: _target(s) for s in SOURCES}
+    from . import MODULES
+    targets = {m.SOURCE: _target(m.SOURCE) for m in MODULES}
     jobs = {}
     for src, out in targets.items():
         if out.exists():

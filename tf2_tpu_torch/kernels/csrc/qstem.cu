@@ -8,7 +8,7 @@
 // Replaces tf2_tpu/kernels/qstem.py:
 //   tf2_qstem  <- _qstem_kernel (:144, called through _qstem_call :184)
 // On the card the Engine runs every zoo CNN's fused stem here (the node
-// fuse_stem_quantize leaves, routed at load by Engine.stem_plan), as the
+// fuse_stem_quantize leaves, routed at load by dispatch.kernel_of), as the
 // reference quantizes its stem inside one XLA fusion.
 //
 // What bounds it on the card: memory bytes. At the ResNet-50 stem (7x7,

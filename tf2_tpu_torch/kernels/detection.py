@@ -26,6 +26,7 @@ import torch
 
 from . import build
 
+SOURCE = "nms.cu"
 LAUNCHES = {"nms": 0}
 
 
@@ -100,7 +101,7 @@ def greedy_keep_plain(boxes: torch.Tensor, iou_thresh: float) -> torch.Tensor:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.library("nms.cu")
+    lib = build.library(SOURCE)
     lib.tf2_nms_keep.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_void_p]
     lib.tf2_nms_keep.restype = ctypes.c_int

@@ -1,10 +1,13 @@
 """Executors of the fused quantized ops on torch tensors: every conv and
 dense layer (the k x k depthwise convs on ``qdwconv``), every attention
 core, every int8 layer norm and every int8 GELU goes through one of the
-CUDA kernels (or, with ``plain=True`` or on the CPU, through that kernel's
-plain version). The rest of the transformer glue (``qbias_add``) is plain
+CUDA kernels (or, where the plan says ``plain`` or on the CPU, through
+that kernel's plain version). The rest of the transformer glue (``qbias_add``) is plain
 PyTorch on either device, as the reference computes it outside any kernel,
 in steps that give the same bits on the card and the CPU.
+
+``kernel_of`` decides what runs a node, once a node at load (``Engine.plan``);
+each executor here runs what its ``kernel`` argument names (``_kernel``).
 
 Each conv and dense node has a route, chosen once at load by the Engine
 (``route_conv``, ``route_dense``; the counterparts of the reference's,
@@ -17,6 +20,7 @@ eager f32 steps: ``qdense_library``, ``qconv2d_library``). An override
 ``kernel``."""
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -161,59 +165,161 @@ def _qconv_wpack2(node, params, x: torch.Tensor, plain: bool) -> torch.Tensor:
     return qconv.qconv_s2x1(xp, w_q, es, eb, **kw)
 
 
-def depthwise(node, xshape) -> bool:
-    """Is the ``qconv2d`` node, on input shape ``xshape``, a depthwise conv
-    that the ``qdwconv`` kernel takes (``qdwconv.covers``) once its weights
-    are int8?"""
+@dataclasses.dataclass(frozen=True)
+class Limits:
+    """What the card's kernels take that a node's shapes do not say: the
+    most channels of a ``qlrn`` row, a chain or stem block's shared memory."""
+    qlrn_channels: int
+    smem_per_block: int
+
+    @classmethod
+    @functools.cache
+    def of_card(cls) -> "Limits":
+        return cls(qlrn_kernel.max_channels(), qblocks.SMEM_LIMIT)
+
+
+def packed_kernel_takes(node) -> bool:
+    """Does the pot4 kernel of this pot4 node take its packed codes? A conv
+    when the conv kernels take it (``qconv.covers``) and its K is even; a
+    dense when its K is even and it has no residual input (the residual
+    epilogue is the int8 GEMM's)."""
     a = node.attrs
+    keep = len(node.inputs) == 1 if node.op == "qdense" else qconv.covers(
+        a["kshape"], a.get("strides", [1, 1]), a.get("groups", 1))
+    return bool(keep and np.prod(a["kshape"][:-1]) % 2 == 0)
+
+
+def kernel_of(node, xshape, params, limits: Limits | None, route: str = "kernel") -> str | None:
+    """What runs ``node`` (first input of shape ``xshape``): a kernel's name
+    in ``kernels.launch_counts()``, ``"plain"`` (no kernel takes it) or
+    ``"library"`` (a GEMM routed so, ``route_node``); None for an op with no
+    kernel, or for all but ``library`` without the card's ``limits`` (the
+    CPU). Each rule asks the kernel's own predicate."""
+    a = node.attrs
+    if route == "library" and runs_gemm(node, "int8"):
+        return "library"
+    if limits is None:
+        return None
+    if node.op == "qconv2d":
+        wfmt, strides = a.get("wfmt"), tuple(a.get("strides", (1, 1)))
+        padding = a.get("padding", "SAME")
+        padding = padding if isinstance(padding, str) else [tuple(p) for p in padding]
+        if wfmt == "wpack2":
+            return "qconv_s2x1"
+        if a.get("groups", 1) > 1 and qdwconv.covers(a["kshape"], strides, a["groups"],
+                                                     xshape[-1], padding, xshape[2]):
+            return "qdwconv" if wfmt == "int8" else "plain"
+        if ("s_in" in a and wfmt == "int8"
+                and qstem.routes(tuple(a["kshape"]), strides, padding, a.get("groups", 1),
+                                 tuple(xshape), limits.smem_per_block)):
+            return "qstem"
+        if not (packed_kernel_takes(node) if wfmt == "pot4"
+                else qconv.covers(a["kshape"], strides, a.get("groups", 1))):
+            return "plain"
+        return "qmatmul_" + wfmt if runs_gemm(node, wfmt) else qconv.KERNELS[strides]
+    if node.op == "qdense":
+        if a.get("wfmt") == "pot4":
+            return "qmatmul_pot4" if packed_kernel_takes(node) else "plain"
+        return "qmatmul_int8"
+    if node.op == "qattention_core":
+        kernel, takes = "qattention", qattention.covers(xshape[1], a["dim"] // a["heads"])
+    elif node.op == "qlrn":
+        kernel, takes = "qlrn", qlrn_kernel.covers(xshape[-1], limits.qlrn_channels)
+    elif node.op == "qlayernorm":
+        kernel, takes = "qlayernorm", qlayernorm_kernel.covers(xshape[-1])
+    elif node.op == "qblockchain":
+        kernel, takes = "qblockchain", qblocks.covers(xshape, chain_blocks(node, params),
+                                                      limits.smem_per_block)
+    elif node.op == "qgelu":
+        kernel, takes = "qgelu", True
+    else:
+        return None
+    return kernel if takes else "plain"
+
+
+def nodes_on(kernels, kernel: str) -> frozenset[str]:
+    """The nodes a plan (node -> ``kernel_of``) puts on ``kernel``."""
+    return frozenset(name for name, k in kernels.items() if k == kernel)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
+def _kernel(node, params, x: torch.Tensor, kernel: str | None) -> str | None:
+    """What runs ``node`` on its first input ``x``: ``kernel`` where a plan
+    names it; else, on a card tensor, ``kernel_of``'s answer, which must be
+    a kernel (only a plan runs a node plain on the card: a node no kernel
+    takes raises ``NotImplementedError``); else None, the kernel's wrapper,
+    which off the card takes its plain version."""
+    if kernel is not None or not _on_card(x):
+        return kernel
+    kernel = kernel_of(node, tuple(x.shape), params, Limits.of_card())
+    if kernel == "plain":
+        raise NotImplementedError(f"{node.name}: no kernel takes this {node.op} node; "
+                                  "an Engine's plan (kernel_of) runs it plain")
+    return kernel
+
+
+def qconv2d(node, params, x_q: torch.Tensor, kernel: str | None = None) -> torch.Tensor:
+    """The conv node on ``kernel`` (see ``_kernel``): a conv or GEMM kernel
+    by its name, ``library``, or ``plain``, or with none off the card, the
+    plain version of its kind (``qconv.fused_qconv2d``'s)."""
+    a = node.attrs
+    kernel = _kernel(node, params, x_q, kernel)
+    if kernel == "library":
+        return qconv2d_library(node, params, x_q)
+    if a.get("wfmt") == "wpack2":
+        return _qconv_wpack2(node, params, x_q, kernel == "plain")
+    if a.get("wfmt") not in ("pot4", "int8"):
+        raise NotImplementedError(f"weight format {a.get('wfmt')!r} is not ported")
+    w, es, eb = (params[p] for p in node.params)
     padding = a.get("padding", "SAME")
-    return (node.op == "qconv2d" and a.get("groups", 1) > 1
-            and qdwconv.covers(a["kshape"], a.get("strides", [1, 1]), a["groups"], xshape[-1],
-                               padding if isinstance(padding, str)
-                               else [tuple(p) for p in padding], xshape[2]))
-
-
-def qconv2d(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
-    if node.attrs.get("wfmt") == "wpack2":
-        return _qconv_wpack2(node, params, x_q, plain)
-    if node.attrs.get("wfmt") not in ("pot4", "int8"):
-        raise NotImplementedError(f"weight format {node.attrs.get('wfmt')!r} is not ported")
-    if node.attrs["wfmt"] == "int8" and depthwise(node, x_q.shape):
-        return qdwconv.fused_qdwconv(x_q, params[node.params[0]], params[node.params[1]],
-                                     params[node.params[2]], relu=node.attrs["relu"],
-                                     plain=plain)
-    padding = node.attrs.get("padding", "SAME")
     if not isinstance(padding, str):
         padding = [tuple(p) for p in padding]
-    if "s_in" in node.attrs:
-        # input quantize fused into the stem (graph/optimize.fuse_stem_quantize).
-        # A stem the Engine routed to the stem kernel at load (Engine.stem_plan)
-        # holds its weight in that kernel's layout (prepare_weights): the
-        # kernel quantizes the image itself
-        w = params[node.params[0]]
-        if not plain and qstem.prepared_ld(w) is not None:
-            return qstem.fused_qstem(x_q, w, params[node.params[1]], params[node.params[2]],
-                                     padding=padding, relu=node.attrs["relu"],
-                                     scale=node.attrs["s_in"])
-        x_q = quantize(x_q, node.attrs["s_in"])
-    return qconv.fused_qconv2d(
-        x_q, params[node.params[0]], params[node.params[1]], params[node.params[2]],
-        strides=tuple(node.attrs.get("strides", [1, 1])), padding=padding,
-        groups=node.attrs.get("groups", 1), relu=node.attrs["relu"],
-        wfmt=node.attrs["wfmt"], kshape=tuple(node.attrs["kshape"]), plain=plain)
+    if kernel == "qstem":
+        # the input quantize fused into the stem (graph/optimize.fuse_stem_quantize):
+        # the stem kernel quantizes the image itself
+        return qstem.fused_qstem(x_q, w, es, eb, padding=padding, relu=a["relu"],
+                                 scale=a["s_in"])
+    if "s_in" in a:
+        x_q = quantize(x_q, a["s_in"])
+    strides, kshape = tuple(a.get("strides", [1, 1])), tuple(a["kshape"])
+    if kernel in (None, "plain"):
+        return qconv.fused_qconv2d(x_q, w, es, eb, strides=strides, padding=padding,
+                                   groups=a.get("groups", 1), relu=a["relu"], wfmt=a["wfmt"],
+                                   kshape=kshape, plain=True)
+    if kernel == "qdwconv":
+        return qdwconv.qdwconv(x_q, w, es, eb, relu=a["relu"])
+    b, h, wd, cin = x_q.shape
+    if kernel in shift_matmul.LAUNCHES:   # a 1x1 conv: the GEMM over the B*H*W pixels
+        cout = kshape[-1]
+        y = getattr(shift_matmul, kernel)(x_q.reshape(b * h * wd, cin),
+                                          w.reshape(cin, cout) if a["wfmt"] == "int8" else w,
+                                          es, eb, a["relu"])
+        return y.reshape(b, h, wd, cout)
+    # qconv_s1, qconv_s2, qconv_s2x1: the implicit-GEMM conv kernels
+    pads = qconv.resolve_pads(padding, kshape[0], kshape[1], *strides, h, wd)
+    return getattr(qconv, kernel)(x_q, w, es, eb, kshape=kshape, pads=pads, relu=a["relu"],
+                                  wfmt=a["wfmt"])
 
 
 def qdense(node, params, x_q: torch.Tensor, r_q: torch.Tensor | None = None,
-            plain: bool = False) -> torch.Tensor:
-    """With ``r_q``, the residual folded into the epilogue
-    (transform/quantize.py, ``fold_residual``): r_q * radd_scale is added
-    after es and eb, before relu and the requant."""
+           kernel: str | None = None) -> torch.Tensor:
+    """The GEMM kernel ``kernel`` names (see ``_kernel``; ``library``:
+    ``qdense_library``), or its weight format's. With ``r_q``, the residual
+    folded into the epilogue (transform/quantize.py, ``fold_residual``):
+    r_q * radd_scale is added after es and eb, before relu and the requant."""
+    kernel = _kernel(node, params, x_q, kernel)
+    if kernel == "library":
+        return qdense_library(node, params, x_q, r_q)
+    fn = getattr(shift_matmul, f"qmatmul_{node.attrs['wfmt']}_plain" if kernel == "plain"
+                 else kernel or f"qmatmul_{node.attrs['wfmt']}")
     residual = None
     if r_q is not None:
         residual = (r_q.reshape(-1, r_q.shape[-1]), node.attrs["radd_scale"])
-    y = shift_matmul.fused_qmatmul(
-        x_q.reshape(-1, x_q.shape[-1]), params[node.params[0]], params[node.params[1]],
-        params[node.params[2]], node.attrs["relu"], node.attrs["wfmt"], plain, residual)
+    y = fn(x_q.reshape(-1, x_q.shape[-1]), params[node.params[0]], params[node.params[1]],
+           params[node.params[2]], node.attrs["relu"], residual)
     return y.reshape(*x_q.shape[:-1], y.shape[-1])
 
 
@@ -239,22 +345,26 @@ def qconv2d_library(node, params, x_q: torch.Tensor) -> torch.Tensor:
     return y.reshape(b, h, w, cout)
 
 
-def qattention_core(node, params, qkv_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
-    """The fused int8 attention core (kernels/qattention.py)."""
-    return qattention.fused_qattention(qkv_q, heads=node.attrs["heads"], dim=node.attrs["dim"],
-                                       s_in=node.attrs["s_in"], s_out=node.attrs["s_out"],
-                                       plain=plain)
+def qattention_core(node, params, qkv_q: torch.Tensor, kernel: str | None = None) -> torch.Tensor:
+    """The fused int8 attention core (kernels/qattention.py; ``kernel``: see
+    ``_kernel``)."""
+    plain = _kernel(node, params, qkv_q, kernel) == "plain"
+    return (qattention.qattention_plain if plain else qattention.qattention)(
+        qkv_q, heads=node.attrs["heads"], dim=node.attrs["dim"], s_in=node.attrs["s_in"],
+        s_out=node.attrs["s_out"])
 
 
 def _requant(y: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
 
 
-def qlayernorm(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
-    """LayerNorm on the int8 codes, int8 out (kernels/qlayernorm.py)."""
-    return qlayernorm_kernel.fused_qlayernorm(
+def qlayernorm(node, params, x_q: torch.Tensor, kernel: str | None = None) -> torch.Tensor:
+    """LayerNorm on the int8 codes, int8 out (kernels/qlayernorm.py;
+    ``kernel``: see ``_kernel``)."""
+    plain = _kernel(node, params, x_q, kernel) == "plain"
+    return (qlayernorm_kernel.qlayernorm_plain if plain else qlayernorm_kernel.qlayernorm)(
         x_q, params[node.params[0]], params[node.params[1]], eps=node.attrs.get("eps", 1e-6),
-        s_in=node.attrs["s_in"], s_out=node.attrs["s_out"], plain=plain)
+        s_in=node.attrs["s_in"], s_out=node.attrs["s_out"])
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -274,11 +384,13 @@ def _qgelu_table(s_in: float, s_out: float, device: torch.device) -> torch.Tenso
     return _requant(y / torch.tensor(build.f32(s_out))).to(device)
 
 
-def qgelu(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def qgelu(node, params, x_q: torch.Tensor, kernel: str | None = None) -> torch.Tensor:
     """dequantize -> gelu -> quantize as one lookup in a 256-entry table (an
-    int8 input has 256 values; kernels/qgelu.py): the table is built on the
-    CPU, so every device gives its bits."""
+    int8 input has 256 values; kernels/qgelu.py; ``kernel``: see
+    ``_kernel``): the table is built on the CPU, so every device gives its
+    bits."""
     table = _qgelu_table(float(node.attrs["s_in"]), float(node.attrs["s_out"]), x_q.device)
+    plain = _kernel(node, params, x_q, kernel) == "plain"
     return (qgelu_kernel.qgelu_plain if plain else qgelu_kernel.qgelu)(x_q, table)
 
 
@@ -356,17 +468,20 @@ def prepare_weights(graph, params, stem_nodes=frozenset()) -> dict:
     return out
 
 
-def qblockchain(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
-    """The chain kernel (kernels/qblocks.py) on ``chain_blocks``."""
-    return qblocks.fused_qblockchain(x_q, chain_blocks(node, params), plain)
+def qblockchain(node, params, x_q: torch.Tensor, kernel: str | None = None) -> torch.Tensor:
+    """The chain kernel (kernels/qblocks.py) on ``chain_blocks`` (``kernel``:
+    see ``_kernel``)."""
+    return qblocks.fused_qblockchain(x_q, chain_blocks(node, params),
+                                     _kernel(node, params, x_q, kernel) == "plain")
 
 
-def qlrn(node, params, x_q: torch.Tensor, plain: bool = False) -> torch.Tensor:
-    """The fused int8 LRN (kernels/qlrn.py)."""
+def qlrn(node, params, x_q: torch.Tensor, kernel: str | None = None) -> torch.Tensor:
+    """The fused int8 LRN (kernels/qlrn.py; ``kernel``: see ``_kernel``)."""
     return qlrn_kernel.fused_qlrn(
         x_q, radius=node.attrs.get("radius", 2), alpha=node.attrs.get("alpha", 1e-4),
         beta=node.attrs.get("beta", 0.75), bias=node.attrs.get("bias", 1.0),
-        s_in=node.attrs["s_in"], s_out=node.attrs["s_out"], plain=plain)
+        s_in=node.attrs["s_in"], s_out=node.attrs["s_out"],
+        plain=_kernel(node, params, x_q, kernel) == "plain")
 
 
 def qconcat(node, params, *xs: torch.Tensor) -> torch.Tensor:

@@ -34,13 +34,14 @@ import torch
 
 from . import build
 
+SOURCE = "qattention.cu"
 LAUNCHES = {"qattention": 0}
 _SIG = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.library("qattention.cu")
+    lib = build.library(SOURCE)
     lib.tf2_qattention.argtypes, lib.tf2_qattention.restype = _SIG, ctypes.c_int
     return lib
 
@@ -110,8 +111,3 @@ def qattention(qkv_q: torch.Tensor, *, heads: int, dim: int, s_in: float, s_out:
     build.check_launch(rc, "qattention")
     LAUNCHES["qattention"] += 1
     return y
-
-
-def fused_qattention(qkv_q: torch.Tensor, *, plain: bool = False, **kw) -> torch.Tensor:
-    """Dispatch entry: the kernel, or its plain version when ``plain``."""
-    return qattention_plain(qkv_q, **kw) if plain else qattention(qkv_q, **kw)

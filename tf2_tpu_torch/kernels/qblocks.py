@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from . import build, qconv, shift_matmul
 
+SOURCE = "qblocks.cu"
 LAUNCHES = {"qblockchain": 0}
 # weights the wrapper prepared (K-major) on a call, having been given none
 # prepared; 0 on every Engine forward
@@ -71,7 +72,7 @@ TWO_CTAS = 1.25
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.library("qblocks.cu")
+    lib = build.library(SOURCE)
     lib.tf2_qblock.argtypes, lib.tf2_qblock.restype = _SIG, ctypes.c_int
     lib.tf2_qblock_max_clusters.argtypes = [ctypes.c_int] * 8
     lib.tf2_qblock_max_clusters.restype = ctypes.c_int

@@ -9,12 +9,13 @@ widths and a gather table, cached per shape with the table on the card);
 on CPU tensors they take the plain version (``qconv_plain``:
 explicit ``F.pad``, exact float64 ``F.conv2d``, the same f32 epilogue).
 Stride (2, 1) is the W-pair-packed stem (``wpack2``, dispatch.qconv2d).
-``fused_qconv2d`` is the dispatch entry: ungrouped 1x1 stride-1 convs go to
-the GEMM kernels of ``shift_matmul``; a conv the kernels do not take
-(``covers``: grouped, or another stride) runs its plain version on the CPU
-and raises on the card, where the Engine's coverage plan sends it to the
-plain version at load (``runtime/engine.py``), as the reference sends it
-to XLA.
+``fused_qconv2d`` runs a conv by its shape: ungrouped 1x1 stride-1 convs on
+the GEMM kernels of ``shift_matmul``, the others on these kernels, or its
+plain version (with ``plain``, or on the CPU); it raises on a card tensor
+the kernels do not take (``covers``: grouped, or another stride). The
+executor (``dispatch.qconv2d``) runs the kernel the Engine's plan
+(``dispatch.kernel_of``) names, and a conv no kernel takes on
+``fused_qconv2d``'s plain version, as the reference sends it to XLA.
 """
 from __future__ import annotations
 
@@ -29,8 +30,9 @@ import torch.nn.functional as F
 from ..transform import potq
 from . import build, shift_matmul
 
+SOURCE = "qconv.cu"
 LAUNCHES = {"qconv_s1": 0, "qconv_s2": 0, "qconv_s2x1": 0}
-_KERNELS = {(1, 1): "qconv_s1", (2, 2): "qconv_s2", (2, 1): "qconv_s2x1"}
+KERNELS = {(1, 1): "qconv_s1", (2, 2): "qconv_s2", (2, 1): "qconv_s2x1"}
 # x, w, es, eb, y; b, h, w, c, oh, ow, kh, kw, pad_top, pad_left, n, pot4,
 # relu; stream; then the plan: table, variant, avec, bvec, tile_h, tile_w,
 # the split-K workspace and counters, splits
@@ -40,8 +42,8 @@ _SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p] * 2 + \
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.library("qconv.cu")
-    for kernel in _KERNELS.values():
+    lib = build.library(SOURCE)
+    for kernel in KERNELS.values():
         fn = getattr(lib, f"tf2_{kernel}")
         fn.argtypes, fn.restype = _SIG, ctypes.c_int
     return lib
@@ -70,9 +72,9 @@ def out_size(size: int, k: int, s: int, p0: int, p1: int) -> int:
 
 def covers(kshape, strides, groups: int) -> bool:
     """Do the conv kernels take this conv? Ungrouped, strides (1, 1),
-    (2, 2) or (2, 1). (The Engine's predecode and its coverage plan ask the
-    same question.)"""
-    return groups == 1 and tuple(strides) in _KERNELS
+    (2, 2) or (2, 1). (The Engine's predecode and ``dispatch.kernel_of`` ask
+    it.)"""
+    return groups == 1 and tuple(strides) in KERNELS
 
 
 # ---- the launch plan: variant, copy widths and gather table per conv ----
@@ -421,7 +423,7 @@ def _qconv(strides: tuple[int, int], x_q, wparam, eff_scale, eff_bias, *, kshape
                          eff_bias=(eff_bias, torch.float32, (cout,)))
     if oh < 1 or ow < 1:
         raise ValueError(f"empty conv output {oh}x{ow}")
-    kernel = _KERNELS[(sh, sw)]
+    kernel = KERNELS[(sh, sw)]
     p, table, ws, counters = _device_plan(
         _plan_key(x_q, wparam, strides, kshape, oh, ow, wfmt), x_q.device)
     y = torch.empty((b, oh, ow, cout), dtype=torch.int8, device=x_q.device)

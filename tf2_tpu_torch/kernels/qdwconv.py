@@ -8,8 +8,8 @@ takes the plain version (``qdwconv_plain``: ``qconv.qconv_plain`` with
 ``groups = C``, an exact float64 ``F.conv2d`` and the same f32 epilogue)
 on any other device. The kernel takes k 3, 5 or 7, C a multiple of 8 and
 int8 weights (``covers``); the Engine decodes a depthwise conv's 4-bit
-codes at load (its K, k * k, is odd), and its coverage plan leaves any
-other grouped conv on the plain version. Its epilogue is
+codes at load (its K, k * k, is odd), and its plan leaves any other
+grouped conv on the plain version. Its epilogue is
 ``shift_matmul.epilogue``'s, so the kernel, the plain version on the card
 and the plain version on the CPU give the same bits.
 """
@@ -22,6 +22,7 @@ import torch
 
 from . import build, qconv
 
+SOURCE = "qdwconv.cu"
 LAUNCHES = {"qdwconv": 0}
 KERNEL_SIZES = (3, 5, 7)
 SMEM_LIMIT = 232448   # dynamic shared memory a block may have on sm_90
@@ -31,7 +32,7 @@ _SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.library("qdwconv.cu")
+    lib = build.library(SOURCE)
     lib.tf2_qdwconv.argtypes, lib.tf2_qdwconv.restype = _SIG, ctypes.c_int
     lib.tf2_qdwconv_smem.argtypes, lib.tf2_qdwconv_smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     return lib
@@ -110,9 +111,3 @@ def qdwconv(x_q: torch.Tensor, w_q: torch.Tensor, eff_scale: torch.Tensor,
     build.check_launch(rc, "qdwconv")
     LAUNCHES["qdwconv"] += 1
     return y
-
-
-def fused_qdwconv(x_q: torch.Tensor, w_q: torch.Tensor, eff_scale, eff_bias, *,
-                  relu: bool, plain: bool = False) -> torch.Tensor:
-    """Dispatch entry: the kernel, or its plain version when ``plain``."""
-    return (qdwconv_plain if plain else qdwconv)(x_q, w_q, eff_scale, eff_bias, relu=relu)

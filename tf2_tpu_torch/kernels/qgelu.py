@@ -19,6 +19,7 @@ import torch
 
 from . import build
 
+SOURCE = "qgelu.cu"
 LAUNCHES = {"qgelu": 0}
 # x, y, table, n, stream
 _SIG = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
@@ -26,7 +27,7 @@ _SIG = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.library("qgelu.cu")
+    lib = build.library(SOURCE)
     lib.tf2_qgelu.argtypes, lib.tf2_qgelu.restype = _SIG, ctypes.c_int
     return lib
 

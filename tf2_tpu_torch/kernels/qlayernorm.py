@@ -20,7 +20,7 @@ and ``rsqrt``: they agree to within one quantum at rounding boundaries.
 row, the row's codes in registers for both passes) and takes the plain
 version (``qlayernorm_plain``) on CPU tensors. The kernel takes widths D
 that are a multiple of 8 up to ``MAX_WIDTH`` (``covers``); the Engine's
-coverage plan leaves a node of any other width on the plain version.
+plan leaves a node of any other width on the plain version.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ import torch
 
 from . import build
 
+SOURCE = "qlayernorm.cu"
 LAUNCHES = {"qlayernorm": 0}
 # the widest row the kernel takes: 16 8-byte words in each lane's registers
 # (csrc/qlayernorm.cu: kMaxWidth, which tf2_qlayernorm_max_width reports)
@@ -42,7 +43,7 @@ _SIG = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_fl
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.library("qlayernorm.cu")
+    lib = build.library(SOURCE)
     lib.tf2_qlayernorm.argtypes, lib.tf2_qlayernorm.restype = _SIG, ctypes.c_int
     lib.tf2_qlayernorm_max_width.argtypes = []
     lib.tf2_qlayernorm_max_width.restype = ctypes.c_int
@@ -109,9 +110,3 @@ def qlayernorm(x_q: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *, ep
     build.check_launch(rc, "qlayernorm")
     LAUNCHES["qlayernorm"] += 1
     return y
-
-
-def fused_qlayernorm(x_q: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
-                     plain: bool = False, **kw) -> torch.Tensor:
-    """Dispatch entry: the kernel, or its plain version when ``plain``."""
-    return (qlayernorm_plain if plain else qlayernorm)(x_q, gamma, beta, **kw)

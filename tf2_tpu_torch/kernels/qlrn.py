@@ -40,6 +40,7 @@ import torch.nn.functional as F
 
 from . import build
 
+SOURCE = "qlrn.cu"
 LAUNCHES = {"qlrn": 0}
 # x, y, m, c, radius, s_in, s_out, alpha, bias, beta_075, beta, cert,
 # slow_count, stream
@@ -54,7 +55,7 @@ CERT_REL = 2.0 ** -17
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.library("qlrn.cu")
+    lib = build.library(SOURCE)
     lib.tf2_qlrn.argtypes, lib.tf2_qlrn.restype = _SIG, ctypes.c_int
     lib.tf2_qlrn_max_channels.argtypes, lib.tf2_qlrn_max_channels.restype = [], ctypes.c_int
     return lib

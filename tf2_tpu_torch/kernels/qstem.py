@@ -10,15 +10,14 @@ that do not fit shared memory) runs the two passes the Engine keeps for
 such stems, the quantize and the stride-2 conv kernel
 (``qconv.fused_qconv2d``), counted in ``TWO_PASS``. On CPU tensors (and
 with ``plain``) it takes the plain version (``qstem_plain``: quantize,
-exact float64 conv, the f32 epilogue of ``qconv``). On the card
-the Engine routes every zoo CNN's fused stem here: ``Engine.stem_plan``
-picks, at load, the stems ``routes`` takes, and ``dispatch.prepare_weights``
-gives their weights the kernel's layout once (``prepare_weight``: (N, k *
-32) rows in the (dy, dx, c) order, each dy's taps padded to 32, seen
-through a view of the HWIO shape). The wrapper lays each launch out once
-for each weight, image shape and alignment, relu and scale
-(``_STEM_LAUNCHES``); a weight given otherwise is prepared on the call and
-counted (``PREPARED_PER_CALL``). ``qstem`` is the kernel's entry on
+exact float64 conv, the f32 epilogue of ``qconv``). On the card the
+Engine's plan (``dispatch.kernel_of``) sends here each zoo CNN's fused stem
+that ``routes`` takes, and ``dispatch.prepare_weights`` gives its weight
+the kernel's layout once (``prepare_weight``: (N, k * 32) rows in the (dy,
+dx, c) order, each dy's taps padded to 32, seen through a view of the HWIO
+shape). The wrapper lays each launch out once for each weight, image shape
+and alignment, relu and scale (``_STEM_LAUNCHES``); a weight given
+otherwise is prepared on the call and counted (``PREPARED_PER_CALL``). ``qstem`` is the kernel's entry on
 ``fold_weight``'s matrix, the reference's layout.
 
 ``stem_geometry``, ``fold_image``, ``stem_taps``, ``fold_weight`` and
@@ -41,6 +40,7 @@ import torch.nn.functional as F
 
 from . import build, dispatch, qconv
 
+SOURCE = "qstem.cu"
 LAUNCHES = {"qstem": 0}
 # weights the wrapper prepared on a call, having been given none prepared;
 # 0 on every Engine forward
@@ -70,7 +70,7 @@ class StemLaunch(ctypes.Structure):
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.library("qstem.cu")
+    lib = build.library(SOURCE)
     lib.tf2_qstem.argtypes, lib.tf2_qstem.restype = [ctypes.c_void_p] * 4, ctypes.c_int
     lib.tf2_qstem_max_smem.argtypes, lib.tf2_qstem_max_smem.restype = [], ctypes.c_int
     return lib
@@ -321,8 +321,8 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, k: int, padding="SAME",
 def routes(kshape, strides, padding, groups: int, xshape,
            smem_limit: int = SMEM_LIMIT) -> bool:
     """Does the Engine run this stem node on the kernel? ``covers`` takes
-    it and ``plan`` has a launch for its f32 image (the Engine's
-    ``stem_plan`` asks it at load, with the card's shared memory)."""
+    it and ``plan`` has a launch for its f32 image (``dispatch.kernel_of``
+    asks it, with the card's shared memory)."""
     kh, _, cin, cout = kshape
     if not covers(kshape, strides, padding, groups, xshape):
         return False
@@ -443,7 +443,8 @@ def qstem(x: torch.Tensor, wmat: torch.Tensor, eff_scale, eff_bias, *, kh: int, 
 def _two_pass(x, w_q, es, eb, padding, relu: bool, scale) -> torch.Tensor:
     """The quantize (with ``scale``) and the stride-2 conv kernel on the
     HWIO weight (``prepare_weight``'s view holds the same values), as the
-    Engine runs a stem outside its stem plan; counted in ``TWO_PASS``."""
+    Engine runs a stem its plan keeps off this kernel; counted in
+    ``TWO_PASS``."""
     x_q = dispatch.quantize(x, scale) if scale is not None else x
     y = qconv.fused_qconv2d(x_q, w_q.contiguous(), es, eb, strides=(2, 2), padding=padding,
                             groups=1, relu=relu, wfmt="int8", kshape=tuple(w_q.shape))

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from ..transform import potq
 from . import build
 
+SOURCE = "shift_matmul.cu"
 LAUNCHES = {"qmatmul_pot4": 0, "qmatmul_int8": 0}
 # weights the wrappers prepared (K-major) on a call, having been given none
 # prepared; 0 on every Engine forward
@@ -50,7 +51,7 @@ _SIG_INT8 = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.library("shift_matmul.cu")
+    lib = build.library(SOURCE)
     lib.tf2_qmatmul_pot4.argtypes, lib.tf2_qmatmul_pot4.restype = _SIG_POT4, ctypes.c_int
     lib.tf2_qmatmul_int8.argtypes, lib.tf2_qmatmul_int8.restype = _SIG_INT8, ctypes.c_int
     return lib

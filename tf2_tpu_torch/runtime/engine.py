@@ -1,17 +1,16 @@
 """Runtime Engine: loads a quantized graph and its params onto a device,
 applies the load-time passes and runs the graph layer by layer, each conv
-and dense layer, each LRN, each attention core and each int8 layer norm in
-one of the CUDA kernels (or on the route the routing table chose for it at
-load, ``kernels/autotune.py``), or, where the coverage plan made at load finds
-that no kernel takes a node, in its plain version on the card. SSD's box
-decode and candidate sort are plain PyTorch on the device and its greedy
-NMS mask a kernel (``kernels/detection.py``), where the reference's are
-XLA. ``Engine.build`` captures the whole forward in
-one CUDA graph, which later calls replay: the port's counterpart of the
+and dense layer, each LRN, each attention core, each int8 layer norm and
+each int8 GELU on what the plan made at load names for it
+(``dispatch.kernel_of``): one of the CUDA kernels, its ``library`` route
+(``kernels/autotune.py``) or, where no kernel takes the node, its plain
+version on the card. SSD's box decode and candidate sort are plain PyTorch
+on the device and its greedy NMS mask a kernel (``kernels/detection.py``),
+where the reference's are XLA. ``Engine.build`` captures the whole forward
+in one CUDA graph, which later calls replay: the port's counterpart of the
 reference's jitted forward (``tf2_tpu/runtime/engine.py:180-196``)."""
 from __future__ import annotations
 
-import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -23,7 +22,8 @@ from ..graph.optimize import (fuse_bottleneck_chains, fuse_lrn_quantize,
                               fuse_stem_quantize, hoist_input_quantize,
                               merge_sibling_1x1, pack_phase_stem, space_to_depth_stem)
 from ..graph.shapes import activation_shapes
-from ..kernels import dispatch, qattention, qblocks, qconv, qlayernorm, qlrn, qstem
+from ..kernels import dispatch
+from ..kernels.dispatch import Limits
 from ..parallel.mesh import (MeshConfig, all_gather_last, batch_bounds, channel_bounds,
                              gather_batch, input_shardings, local_node, tp_shardable)
 from ..transform import potq
@@ -59,16 +59,6 @@ def _decode_pot4(graph: Graph, params, names: set[str]):
     return g, new_params
 
 
-def _packed_kernel_takes(n: Node) -> bool:
-    """Does the pot4 kernel of this pot4 node take its packed codes? A conv
-    when the conv kernels take it (``qconv.covers``) and its K is even; a
-    dense when its K is even and it has no residual input (the residual
-    epilogue is the int8 GEMM's)."""
-    keep = len(n.inputs) == 1 if n.op == "qdense" else qconv.covers(
-        n.attrs["kshape"], n.attrs.get("strides", [1, 1]), n.attrs.get("groups", 1))
-    return bool(keep and np.prod(n.attrs["kshape"][:-1]) % 2 == 0)
-
-
 def routes_of(graph: Graph, params, mesh: MeshConfig | None = None) -> dict[str, str]:
     """{node: route} of the qconv2d and qdense nodes whose route
     (``dispatch.route_node`` on its input shape: override, table,
@@ -89,12 +79,12 @@ def routes_of(graph: Graph, params, mesh: MeshConfig | None = None) -> dict[str,
 
 def _predecode_fallback_weights(graph: Graph, params, routes=None):
     """Decode the pot4 nodes that do not keep their packed codes: those the
-    kernels cannot take packed (``_packed_kernel_takes``) and those
+    kernels cannot take packed (``dispatch.packed_kernel_takes``) and those
     ``routes`` sends to ``kernel_int8`` or ``library``."""
     routes = routes or {}
     names = {n.name for n in graph.nodes
              if n.op in ("qconv2d", "qdense") and n.attrs.get("wfmt") == "pot4"
-             and (n.name in routes or not _packed_kernel_takes(n))}
+             and (n.name in routes or not dispatch.packed_kernel_takes(n))}
     return _decode_pot4(graph, params, names)
 
 
@@ -166,19 +156,6 @@ def shard_tp(graph: Graph, params, mesh: MeshConfig):
     return g, new_params, frozenset(sliced)
 
 
-@dataclasses.dataclass(frozen=True)
-class Limits:
-    """What the card's kernels take that a node's shapes alone do not say:
-    the most channels of a ``qlrn`` row and the shared memory a block of
-    the chain kernel may use."""
-    qlrn_channels: int
-    smem_per_block: int
-
-    @classmethod
-    def of_card(cls) -> "Limits":
-        return cls(qlrn.max_channels(), qblocks.SMEM_LIMIT)
-
-
 def resolve_device(device: str | torch.device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -224,23 +201,19 @@ class Engine:
     and the passes inside that block (``phase_stem`` and ``merge_1x1`` are
     then ignored); ``block_fusion`` and ``optimize`` still apply, on the
     graph as the artifact has it. Every node then takes ``kernel``; a pot4
-    node the kernels cannot take packed runs plain on the card, chosen at
-    load by the coverage plan.
+    node the kernels cannot take packed runs plain on the card.
 
-    Routes (``kernels/dispatch.py``): each conv and dense node's route is
-    resolved once at load (``routes``: the nodes off ``kernel``); the
-    ``library`` nodes, ``library_nodes``, run ``torch._int_mm``. On the
-    card the load ends with the coverage plan (``Engine.plan``): the nodes
-    no kernel takes, ``plain_nodes``, run their plain versions there, as
-    the reference runs them in XLA; and with the stem plan
-    (``Engine.stem_plan``): the fused stems, ``stem_nodes``, that run on the
-    stem kernel (``kernels/qstem.py``), which quantizes the f32 image
-    itself, as the reference's stem fusion does; a stem it does not take
-    keeps the eager quantize and the stride-2 conv kernel. On the CPU every
-    node is plain and both sets are empty. On every device the weights of
-    the int8 GEMMs, of the chains and of the routed stems are then stored
-    as those kernels read them (``dispatch.prepare_weights``), each once,
-    seen through a view of its own shape.
+    Each conv and dense node's route is resolved once at load (``routes``:
+    those off ``kernel``). The load ends with the plan (``Engine.plan``):
+    ``kernels`` names what runs each node, and the executor runs it so.
+    Its views: ``plain_nodes`` (no kernel takes them: their plain versions
+    on the card, as the reference runs them in XLA), ``stem_nodes`` (on the
+    stem kernel, which quantizes the f32 image itself, as the reference's
+    stem fusion does), ``library_nodes`` (``torch._int_mm``). On the CPU
+    the plan holds the ``library`` nodes alone; every other node is plain.
+    The weights of the int8 GEMMs, of the chains and of the stems on the
+    stem kernel are then stored as those kernels read them, each once, seen
+    through a view of its own shape (``dispatch.prepare_weights``).
 
     ``mesh`` (``parallel.make_mesh``; the reference's ``mesh`` option,
     ``tf2_tpu/runtime/engine.py:157-167, 204-209``) runs this rank's part
@@ -319,25 +292,19 @@ class Engine:
         self.graph = graph
         # a routed node a later pass replaced (a merged or fused conv) takes
         # the route of what replaced it: kernel
-        kept = {n.name: n for n in graph.nodes}
+        kept = {n.name for n in graph.nodes}
         self.routes = {k: r for k, r in routes.items() if k in kept}
-        self.library_nodes = frozenset(k for k, r in self.routes.items()
-                                       if r == "library" and dispatch.runs_gemm(kept[k], "int8"))
-        on_card = self.device.type == "cuda"
-        limits = Limits.of_card() if on_card else None
+        limits = Limits.of_card() if self.device.type == "cuda" else None
         with spans.span("engine.plan"):
-            self.plain_nodes = (self.plan(graph, params, limits, shapes) if on_card
-                                else frozenset())
-        with spans.span("engine.stem_plan"):
-            self.stem_nodes = (self.stem_plan(graph, params, limits, shapes) if on_card
-                               else frozenset())
+            self.kernels = self.plan(graph, params, limits, shapes, self.routes)
+        self.plain_nodes, self.stem_nodes, self.library_nodes = (
+            dispatch.nodes_on(self.kernels, k) for k in ("plain", "qstem", "library"))
         with spans.span("engine.weights"):
             self.params = dispatch.prepare_weights(
                 graph, {k: torch.as_tensor(np.asarray(v)).to(self.device)
                         for k, v in params.items()},
                 self.stem_nodes)
-        self._fn = execute(graph, plain_nodes=self.plain_nodes, library_nodes=self.library_nodes,
-                           gather_nodes=self.tp_nodes,
+        self._fn = execute(graph, kernels=self.kernels, gather_nodes=self.tp_nodes,
                            gather=lambda t: all_gather_last(mesh, t))
         self._donate = donate_inputs
         self._graph = None        # the captured forward (build)
@@ -345,76 +312,21 @@ class Engine:
         self._static_out = None
 
     @staticmethod
-    def plan(graph: Graph, params, limits: Limits, shapes=None) -> frozenset[str]:
-        """The names of the nodes that no kernel takes, each asked of its
-        kernel's own predicate (the one its wrapper asks) on the shapes
-        ``activation_shapes`` gives: ``qconv.covers`` for a conv (and, for
-        pot4 codes, an even K), the pot4 GEMM for a dense (an even K and no
-        residual: ``predecode=False`` leaves such nodes packed),
-        ``qdwconv.covers`` for a depthwise conv (with int8 weights: a pot4
-        one, which ``predecode=False`` leaves packed, runs plain),
-        ``qattention.covers`` for an attention core, ``qlayernorm.covers``
-        for a layer norm's width, ``qlrn.covers`` and ``qblocks.covers``
-        with the card's ``limits``. Int8 dense layers, the ``wpack2`` stem
-        and the int8 GELU (any contiguous int8 tensor) always have a
-        kernel, and the rest of the int8 glue needs none
-        (the reference's XLA fallback, ``tf2_tpu/kernels/dispatch.py``,
-        made at load). ``shapes``:
-        the values' shapes where the graph alone does not give them (a tp
-        rank's graph, whose sliced nodes' outputs are gathered). Counts the
-        nodes it leaves plain and those it gives ``qdwconv`` and ``qgelu``
-        in the span recorder (``engine.plain_nodes``,
-        ``engine.dwconv_nodes``, ``engine.qgelu_nodes``)."""
-        shapes = shapes or activation_shapes(graph, params)
-        rejected = set()
-        dwconv = gelu = 0
-        for n in graph.nodes:
-            pot4 = n.attrs.get("wfmt") == "pot4"
-            if n.op == "qconv2d" and dispatch.depthwise(n, shapes[n.inputs[0]]):
-                takes = not pot4
-                dwconv += takes
-            elif n.op == "qconv2d" and n.attrs.get("wfmt") != "wpack2":
-                takes = (_packed_kernel_takes(n) if pot4 else qconv.covers(
-                    n.attrs["kshape"], n.attrs.get("strides", [1, 1]), n.attrs.get("groups", 1)))
-            elif n.op == "qdense":
-                takes = not pot4 or _packed_kernel_takes(n)
-            elif n.op == "qattention_core":
-                takes = qattention.covers(shapes[n.inputs[0]][1],
-                                          n.attrs["dim"] // n.attrs["heads"])
-            elif n.op == "qlrn":
-                takes = qlrn.covers(shapes[n.inputs[0]][-1], limits.qlrn_channels)
-            elif n.op == "qlayernorm":
-                takes = qlayernorm.covers(shapes[n.inputs[0]][-1])
-            elif n.op == "qblockchain":
-                takes = qblocks.covers(shapes[n.inputs[0]], dispatch.chain_blocks(n, params),
-                                       limits.smem_per_block)
-            elif n.op == "qgelu":
-                takes = True
-                gelu += 1
-            else:
-                continue
-            if not takes:
-                rejected.add(n.name)
-        spans.count("engine.plain_nodes", len(rejected))
-        spans.count("engine.dwconv_nodes", dwconv)
-        spans.count("engine.qgelu_nodes", gelu)
-        return frozenset(rejected)
-
-    @staticmethod
-    def stem_plan(graph: Graph, params, limits: Limits, shapes=None) -> frozenset[str]:
-        """The names of the fused stems (``qconv2d`` nodes with ``s_in``
-        and int8 weights: the node ``fuse_stem_quantize`` leaves) that run
-        on the stem kernel: those ``qstem.routes`` takes on the shapes
-        ``activation_shapes`` gives, with the card's shared memory
-        (``limits``). Made at load; a stem outside it keeps the quantize and
-        the stride-2 conv kernel. ``shapes`` as ``plan``'s."""
-        shapes = shapes or activation_shapes(graph, params)
-        return frozenset(
-            n.name for n in graph.nodes
-            if n.op == "qconv2d" and "s_in" in n.attrs and n.attrs.get("wfmt") == "int8"
-            and qstem.routes(tuple(n.attrs["kshape"]), tuple(n.attrs.get("strides", (1, 1))),
-                             n.attrs.get("padding", "SAME"), n.attrs.get("groups", 1),
-                             tuple(shapes[n.inputs[0]]), limits.smem_per_block))
+    def plan(graph: Graph, params, limits: Limits | None, shapes=None,
+             routes: Mapping[str, str] | None = None) -> dict[str, str]:
+        """{node: what runs it}: ``dispatch.kernel_of`` asked once a node, with
+        the card's ``limits`` (None: the CPU) and each node's route (``routes``:
+        those off ``kernel``), on ``activation_shapes`` unless ``shapes`` are
+        given (a tp rank's). Counts the plain nodes (``engine.plain_nodes``)."""
+        routes = routes or {}
+        if limits is not None and shapes is None:
+            shapes = activation_shapes(graph, params)
+        kernels = {n.name: k for n in graph.nodes
+                   if (k := dispatch.kernel_of(n, shapes and shapes[n.inputs[0]], params, limits,
+                                               routes.get(n.name, "kernel"))) is not None}
+        if limits is not None:
+            spans.count("engine.plain_nodes", sum(k == "plain" for k in kernels.values()))
+        return kernels
 
     def shard_inputs(self, **inputs):
         """This rank's rows of each input of a global batch (by

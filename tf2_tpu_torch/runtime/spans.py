@@ -23,8 +23,6 @@ process:
 |---|---|
 | ``kernels.compiled`` | ``kernels/build.build_all``: the sources nvcc compiled |
 | ``engine.plain_nodes`` | ``Engine.plan``: the nodes it leaves to a plain version on the card, summed over the plans made |
-| ``engine.dwconv_nodes`` | ``Engine.plan``: the depthwise convs it gives the ``qdwconv`` kernel, summed the same way |
-| ``engine.qgelu_nodes`` | ``Engine.plan``: the int8 GELUs it gives the ``qgelu`` kernel, summed the same way |
 
 The spans:
 
@@ -33,7 +31,7 @@ The spans:
 | ``kernels.build_all`` | ``kernels/build.build_all``: the sources' hash, nvcc where needed |
 | ``kernels.open`` | ``kernels/build.library``: the ``ctypes.CDLL`` of one library, at its first use |
 | ``artifact.load`` | ``transform/export.load_artifact``, hashes included |
-| ``engine.init`` -> ``engine.routes``, ``engine.decode``, ``engine.pass.<rewrite>`` (each load pass that runs), ``engine.plan``, ``engine.stem_plan``, ``engine.weights`` | ``Engine.__init__`` |
+| ``engine.init`` -> ``engine.routes``, ``engine.decode``, ``engine.pass.<rewrite>`` (each load pass that runs), ``engine.plan``, ``engine.weights`` | ``Engine.__init__`` |
 | ``engine.build`` -> ``engine.build.warmup``, ``engine.build.capture`` | ``Engine.build`` |
 | ``engine.call`` -> ``engine.copy_in``, ``engine.replay`` | ``Engine.__call__``: the copy into the Engine's inputs, then the forward (the captured graph's replay, or the eager forward where nothing is captured); the rest of the call (input checks, the outputs' clone) is its self time |
 
@@ -54,8 +52,7 @@ from typing import NamedTuple
 import torch
 
 RING = 1 << 18
-COUNTERS = ("kernels.compiled", "engine.plain_nodes", "engine.dwconv_nodes",
-            "engine.qgelu_nodes")
+COUNTERS = ("kernels.compiled", "engine.plain_nodes")
 
 _profiling = torch._C._autograd._profiler_enabled
 _NO_RANGE = contextlib.nullcontext()

@@ -55,8 +55,7 @@ def bias_correct(art, folded_graph, folded_params: Mapping,
     # a fused-relu node is named after the relu: its pre-activation f32
     # value is the conv/dense node's own output
     relu_src = {n.name: n.inputs[0] for n in folded_graph.nodes if n.op == "relu"}
-    plain = (Engine.plan(art.graph, art.params, Limits.of_card()) if dev.type == "cuda"
-             else frozenset())
+    plan = Engine.plan(art.graph, art.params, Limits.of_card()) if dev.type == "cuda" else {}
     qparams = dispatch.prepare_weights(art.graph, _on(art.params, dev))
     corrected = 0
     with torch.no_grad():
@@ -77,7 +76,7 @@ def bias_correct(art, folded_graph, folded_params: Mapping,
                     # quantized residual too
                     s_r = float(node.attrs["radd_scale"]) * s_out
                     args.append(dispatch.quantize(env[_fp_name(node.inputs[1])], s_r))
-                y_q = impl(pre, qparams, *args, plain=node.name in plain).to(torch.float64)
+                y_q = impl(pre, qparams, *args, kernel=plan.get(node.name)).to(torch.float64)
                 diff = (y_fp - y_q * s_out).reshape(-1, y_fp.shape[-1])
                 err_sum = diff.sum(0) if err_sum is None else err_sum + diff.sum(0)
                 count += diff.shape[0]

@@ -53,9 +53,9 @@ def checked_execute(graph: Graph, device: str | torch.device = "cuda"):
     the table, else ``IndexError``; after each node every float output must
     be finite, else ``FloatingPointError`` naming the node, its op and the
     kind (``nan`` before ``inf``). Torch has no checkify, so each check is a
-    host sync: a debug tool. A node no kernel takes raises on the card as
-    its wrapper does (run such a graph through an Engine, or under
-    ``plain_mode``)."""
+    host sync: a debug tool. A node no kernel takes raises on the card
+    (``NotImplementedError``: only an Engine's plan runs a node plain
+    there); run such a graph through an Engine, or under ``plain_mode``."""
     from ..runtime.engine import resolve_device
 
     device = resolve_device(device)
@@ -146,8 +146,7 @@ def compare_shardings(meshed, whole, atol_quanta: int = 0, min_exact: float = 1.
     The port's partition is exact (a tp node's requant is per output
     channel, dp rows are independent), so the defaults are 0 and 1.0 where
     the reference allows a quantum for XLA's partitioned sums."""
-    _, env = execute(whole.graph, intermediates=True, plain_nodes=whole.plain_nodes,
-                     library_nodes=whole.library_nodes)(
+    _, env = execute(whole.graph, intermediates=True, kernels=whole.kernels)(
         whole.params, **{k: torch.as_tensor(v).to(whole.device) for k, v in inputs.items()})
     rows = slice(*meshed.rows) if meshed.rows is not None else slice(None)
     local = {k: v[rows] for k, v in env.items()}
@@ -157,8 +156,7 @@ def compare_shardings(meshed, whole, atol_quanta: int = 0, min_exact: float = 1.
         if want is not None and want.dtype != torch.int8:
             continue
         got = run_node(node, meshed.params, *(local[i] for i in node.inputs),
-                       plain=node.name in meshed.plain_nodes,
-                       library=node.name in meshed.library_nodes)
+                       kernel=meshed.kernels.get(node.name))
         if want is None:   # a node the tp cut added (a residual's slice)
             local[node.name] = got
             continue
